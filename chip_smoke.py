@@ -1,0 +1,356 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (lyssandra_tpu_torch) once on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and exits non-zero:
+  1. require a CUDA device; print its name and power limit (nvidia-smi);
+  2. build the CUDA kernels from csrc/ and print the build time;
+  3. K1 (fixed-T fused OMP) against its plain version: a well-posed
+     problem (p=64, K=1024, T=8, N=32768: idx and nsel equal, gamma within
+     1e-4) and Gaussian signals (the Batch-OMP benchmark's 262,144 lanes:
+     >= 99.9% of lanes pick the same atoms — summation order differs, and
+     so do near-ties);
+  4. K2 (error-stopped fused OMP) against its plain version on the
+     sigma=25 patches of a 512x512 image (eps = 1.15*8*25, T=10): nsel
+     equal on >= 99.9% of lanes;
+  5. K3 (fused patch pipeline) against its plain version on that image,
+     DC removal / + contrast normalization / + whitening: atol 1e-4;
+     then the kernels' envelope at small odd shapes (p, K not multiples of
+     32; p=512 and T=32, whose shared memory needs the opt-in above 48 KB;
+     lanes done on entry; whitening at p=5): the same checks, and a T the
+     kernel cannot hold must raise;
+  6. the main path, counted: Batch-OMP (p=64, K=1024, T=8, N=262144)
+     through lyssandra_tpu_torch.batch_omp and the sigma=25 denoise of the
+     512x512 image through Denoiser; every kernel must have launched;
+     the denoised image must beat the noisy one by > 3 dB and agree within
+     0.05 dB with a path built from the plain versions;
+  7. times (median of 5, CUDA events) of the kernel path and the plain
+     path, patches/s and denoise seconds;
+then one JSON line of per-kernel results and, last, the result line.
+Nothing runs on the CPU when there is no GPU.
+"""
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+P, K, T = 64, 1024, 8               # the Batch-OMP benchmark's shape
+BENCH_BLOCK, BENCH_STEPS = 32768, 8  # 262,144 lanes, made as bench.py does
+SIGMA, IMG_SIZE = 25.0, 512
+REPS = 5
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def make_problem(rng, p, K, N, T):
+    """Unit-norm Gaussian dictionary and signals that are noisy T-sparse
+    combinations of its atoms (well-posed greedy recovery)."""
+    D = rng.standard_normal((p, K))
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    Gamma = np.zeros((K, N))
+    for n in range(N):
+        Gamma[rng.choice(K, T, replace=False), n] = rng.standard_normal(T)
+    X = D @ Gamma + 0.01 * rng.standard_normal((p, N))
+    return D.astype(np.float32), X.astype(np.float32)
+
+
+def bench_problem():
+    """D and the 262,144 Gaussian signals of the Batch-OMP benchmark
+    (same shapes, seed and draw order)."""
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((P, K))
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    rng.standard_normal((P, 512))   # the benchmark's CPU-oracle sample
+    X = np.concatenate([
+        rng.standard_normal((P, BENCH_BLOCK)).astype(np.float32)
+        for _ in range(BENCH_STEPS)
+    ], axis=1)
+    return D.astype(np.float32), X
+
+
+def cuda_ms(torch, fn):
+    """Median device time of fn() over REPS warm runs (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; it runs only on a GPU")
+    sys.path.insert(0, ROOT)
+    import lyssandra_tpu_torch as lt
+    from lyssandra_tpu_torch import _build
+    from lyssandra_tpu_torch.apps.denoise import Denoiser
+    from lyssandra_tpu_torch.ops.cuda_omp import (
+        omp_fused, omp_fused_reference,
+    )
+    from lyssandra_tpu_torch.ops.cuda_patches import (
+        fused_patch_pipeline_p1, fused_patch_pipeline_reference,
+    )
+    from lyssandra_tpu_torch.ops.patches import weighted_reconstruct
+    from lyssandra_tpu_torch.solvers.greedy import GreedyResult, _omp_impl
+    from lyssandra_tpu_torch.utils.datasets import synthetic_image
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    # --- 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # --- 2. build
+    t0 = time.perf_counter()
+    log = _build.build(("-Xptxas", "-v"))
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.1f} s "
+          f"({_build.library_path().name})")
+    for line in log.splitlines():
+        if "Used" in line or "spill" in line or "Compiling" in line:
+            print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+
+    def dt(a):
+        return torch.as_tensor(a, device=dev)
+
+    # --- 3. K1 against its plain version
+    D, X = make_problem(np.random.default_rng(0), P, K, 32768, T)
+    D, X = dt(D), dt(X)
+    got = omp_fused(D, X, T=T)
+    want = omp_fused_reference(D, X, T=T)
+    check(torch.equal(got[0], want[0]), "K1 idx, well-posed")
+    check(torch.equal(got[3], want[3]), "K1 nsel, well-posed")
+    k1_err = float((got[1] - want[1]).abs().max())
+    check(k1_err <= 1e-4, f"K1 gamma, well-posed: {k1_err}")
+    print(f"K1 well-posed N=32768: idx, nsel equal; max |dgamma| {k1_err:.3g}")
+
+    # the freeze rule: atoms 0 and K/2 are both e_0 and lanes 0-7 are 2 e_0,
+    # so step 1 leaves r = 0 exactly and step 2 re-picks atom 0 and freezes
+    e0 = torch.zeros(P, device=dev)
+    e0[0] = 1.0
+    Dz = D.clone()
+    Dz[:, K // 2:] = Dz[:, :K // 2]
+    Dz[:, 0] = Dz[:, K // 2] = e0
+    Xz = X[:, :4096].clone()
+    Xz[:, :8] = 2.0 * e0[:, None]
+    got = omp_fused(Dz, Xz, T=T)
+    want = omp_fused_reference(Dz, Xz, T=T)
+    check(bool((got[3][:8] == 1).all()) and bool((got[1][:8, 0] == 2).all()),
+          "K1 freeze on a repeated atom")
+    check(torch.equal(got[3], want[3]), "K1 nsel, duplicated atoms")
+    check(bool(torch.isfinite(got[1]).all()), "K1 gamma finite")
+
+    Db, Xb = bench_problem()
+    Db, Xb = dt(Db), dt(Xb)
+    got = omp_fused(Db, Xb, T=T)
+    want = omp_fused_reference(Db, Xb, T=T)
+    agree = float((got[0] == want[0]).all(dim=1).float().mean())
+    check(agree >= 0.999, f"K1 Gaussian idx agreement {agree}")
+    print(f"K1 Gaussian N={Xb.shape[1]}: idx agree on {agree:.6f} of lanes")
+    k1_ms = cuda_ms(torch, lambda: omp_fused(Db, Xb, T=T))
+    k1_plain_ms = cuda_ms(torch, lambda: omp_fused_reference(Db, Xb, T=T))
+    del got, want
+
+    # --- 4. K2 against its plain version, on the denoise patches
+    img = synthetic_image("texture", IMG_SIZE, seed=0)
+    noisy_np = img + SIGMA * np.random.default_rng(0).standard_normal(
+        img.shape)
+    img_d = dt(img.astype(np.float32))
+    noisy = dt(noisy_np.astype(np.float32))
+    Xc, _, _ = fused_patch_pipeline_reference(noisy, 8, do_dc=True)
+    eps = 1.15 * 8 * SIGMA
+    Dd = lt.dct_dictionary(8, 256, device=dev)
+    got = omp_fused(Dd, Xc, T=10, eps=eps, eps_mode=True)
+    want = omp_fused_reference(Dd, Xc, T=10, eps=eps, eps_mode=True)
+    same = (got[3] == want[3]) & (got[0] == want[0]).all(dim=1)
+    agree = float((got[3] == want[3]).float().mean())
+    check(agree >= 0.999, f"K2 nsel agreement {agree}")
+    k2_err = float((got[1] - want[1]).abs()[same].max())
+    print(f"K2 N={Xc.shape[1]}: nsel agree on {agree:.6f} of lanes, mean "
+          f"nsel {float(got[3].float().mean()):.3f}; max |dgamma| on "
+          f"agreeing lanes {k2_err:.3g}")
+    k2_ms = cuda_ms(torch, lambda: omp_fused(
+        Dd, Xc, T=10, eps=eps, eps_mode=True))
+    k2_plain_ms = cuda_ms(torch, lambda: omp_fused_reference(
+        Dd, Xc, T=10, eps=eps, eps_mode=True))
+    del got, want
+
+    # --- 5. K3 against its plain version
+    Xn, _, _ = fused_patch_pipeline_reference(
+        noisy, 8, do_dc=True, do_norm=True)
+    Xn64 = Xn.double()
+    mu = Xn64.mean(dim=1, keepdim=True)
+    lam, V = torch.linalg.eigh((Xn64 - mu) @ (Xn64 - mu).T / Xn.shape[1])
+    Wm = (V @ torch.diag(1.0 / torch.sqrt(lam + 1e-2)) @ V.T)
+    whiten = (Wm.float(), (Wm @ mu[:, 0]).float())
+    k3_err = 0.0
+    for kw in ({"do_dc": True}, {"do_dc": True, "do_norm": True},
+               {"do_dc": True, "do_norm": True, "whiten": whiten}):
+        got = fused_patch_pipeline_p1(noisy, 8, **kw)
+        want = fused_patch_pipeline_reference(noisy, 8, **kw)
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        check(max(errs) <= 1e-4, f"K3 {sorted(kw)}: {errs}")
+        k3_err = max(k3_err, *errs)
+        print(f"K3 {sorted(kw)}: max |d| X, means, scales = {errs}")
+    k3_ms = cuda_ms(torch, lambda: fused_patch_pipeline_p1(noisy, 8))
+    k3_plain_ms = cuda_ms(
+        torch, lambda: fused_patch_pipeline_reference(noisy, 8))
+    del got, want, Xn, Xn64
+
+    # --- 5b. the kernels' envelope at small odd shapes
+    def omp_case(p, K, N, sparsity, T, eps=None, scale=()):
+        D, X = make_problem(np.random.default_rng(p + K + N), p, K, N,
+                            sparsity)
+        for cols, f in scale:
+            X[:, cols] *= f
+        D, X = dt(D), dt(X)
+        kw = {"T": T} if eps is None else {"T": T, "eps": eps,
+                                           "eps_mode": True}
+        got = omp_fused(D, X, **kw)
+        want = omp_fused_reference(D, X, **kw)
+        keep = (torch.arange(T, device=dev)[None, :]
+                < want[3][:, None]).int()
+        what = f"envelope p={p} K={K} N={N} T={T} eps={eps}"
+        check(torch.equal(got[3], want[3]), f"{what}: nsel")
+        check(torch.equal(got[0] * keep, want[0] * keep), f"{what}: idx")
+        err = float((got[1] - want[1]).abs().max())
+        check(err <= 1e-4, f"{what}: gamma {err}")
+        print(f"{what}: nsel, idx equal; max |dgamma| {err:.3g}; mean nsel "
+              f"{float(got[3].float().mean()):.2f}")
+        return D, X
+
+    omp_case(12, 100, 1000, 3, 4)
+    omp_case(16, 128, 333, 3, 6, eps=0.3,
+             scale=((slice(0, 100), 1e-6), (slice(100, 200), 0.05)))
+    D512, X512 = omp_case(512, 1024, 2048, 8, 8)
+    omp_case(64, 1024, 999, 8, 32, eps=0.12)
+    try:
+        omp_fused(D512, X512, T=200)
+        check(False, "a T beyond the kernel's shared memory did not raise")
+    except ValueError as e:
+        print(f"T=200 at p=512 raises: {e}")
+    del D512, X512
+
+    rng = np.random.default_rng(1)
+    odd = dt((255.0 * rng.random((33, 47))).astype(np.float32))
+    Wm5 = dt(rng.standard_normal((25, 25)).astype(np.float32))
+    off5 = dt(rng.standard_normal(25).astype(np.float32))
+    for p, kw in ((8, {"do_dc": True, "do_norm": True}),
+                  (5, {"do_dc": True, "do_norm": True,
+                       "whiten": (Wm5, off5)})):
+        got = fused_patch_pipeline_p1(odd, p, **kw)
+        want = fused_patch_pipeline_reference(odd, p, **kw)
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        check(max(errs) <= 1e-4, f"K3 33x47 p={p} {sorted(kw)}: {errs}")
+        print(f"K3 33x47 p={p} {sorted(kw)}: max |d| = {errs}")
+
+    # --- 6. the main path, counted
+    cfg = lt.DenoiseConfig(sigma=SIGMA)
+    denoiser = Denoiser(Dd, cfg)
+    lt.reset_launch_counts()
+    res = lt.batch_omp(Db, Xb, T=T, dense=False)
+    out = denoiser(noisy)
+    torch.cuda.synchronize()
+    launches = lt.launch_counts()
+    print(f"main-path launches: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} not launched on the main path")
+
+    ref = omp_fused_reference(Db, Xb, T=T)
+    check(tuple(res.idx.shape) == (Xb.shape[1], T), "batch_omp idx shape")
+    check(bool(torch.isfinite(res.gamma).all()), "batch_omp gamma finite")
+    agree = float((res.idx == ref[0]).all(dim=1).float().mean())
+    check(agree >= 0.999, f"batch_omp idx agreement {agree}")
+    del ref
+
+    def plain_denoise():
+        """The same forward from the plain versions only."""
+        T1 = min(10, cfg.T_max)
+        Xc, means, _ = fused_patch_pipeline_reference(noisy, 8, do_dc=True)
+        r = GreedyResult(*omp_fused_reference(
+            Dd, Xc, T=T1, eps=eps, eps_mode=True))
+        Gamma = r.dense(Dd.shape[1])
+        bad = torch.nonzero((r.nsel == T1) & (r.err > eps * eps))[:, 0]
+        if len(bad):
+            Gamma[:, bad] = _omp_impl(Dd, Xc[:, bad], eps, T=cfg.T_max,
+                                      eps_mode=True).dense(Dd.shape[1])
+        Xhat = Dd @ Gamma + means[None, :]
+        return weighted_reconstruct(Xhat, noisy, 8, cfg.lam / SIGMA)
+
+    out_plain = plain_denoise()
+    check(tuple(out.shape) == (IMG_SIZE, IMG_SIZE), "denoise shape")
+    check(bool(torch.isfinite(out).all()), "denoise output finite")
+    p_noisy = lt.psnr(noisy, img_d)
+    p_out = lt.psnr(out, img_d)
+    p_plain = lt.psnr(out_plain, img_d)
+    print(f"denoise {IMG_SIZE}^2 sigma={SIGMA}: PSNR noisy {p_noisy:.4f} dB,"
+          f" kernel path {p_out:.4f} dB, plain path {p_plain:.4f} dB")
+    check(p_out > p_noisy + 3.0, "denoise gains less than 3 dB")
+    check(abs(p_out - p_plain) <= 0.05, "kernel and plain denoise differ")
+
+    # --- 7. times
+    N = Xb.shape[1]
+    bomp_ms = cuda_ms(torch, lambda: lt.batch_omp(Db, Xb, T=T, dense=False))
+    bomp_plain_ms = cuda_ms(torch, lambda: omp_fused_reference(Db, Xb, T=T))
+    print(f"batch_omp p={P} K={K} T={T} N={N}: kernel path "
+          f"{bomp_ms:.3f} ms = {N / bomp_ms * 1e3:.1f} patches/s; plain "
+          f"{bomp_plain_ms:.3f} ms = {N / bomp_plain_ms * 1e3:.1f} patches/s")
+    den_ms = cuda_ms(torch, lambda: denoiser(noisy))
+    den_plain_ms = cuda_ms(torch, plain_denoise)
+    print(f"denoise {IMG_SIZE}^2: kernel path {den_ms / 1e3:.4f} s, plain "
+          f"path {den_plain_ms / 1e3:.4f} s")
+
+    kernels = [
+        {"name": "omp_fused (fixed T)", "route": "cuda",
+         "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
+         "replaces": "lyssandra_tpu/ops/pallas_omp.py:79",
+         "launches": launches["omp_fused_t"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "omp_fused (eps exit)", "route": "cuda",
+         "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
+         "replaces": "lyssandra_tpu/ops/pallas_omp.py:235",
+         "launches": launches["omp_fused_eps"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "fused_patches", "route": "cuda",
+         "source": "lyssandra_tpu_torch/csrc/fused_patches.cu",
+         "replaces": "lyssandra_tpu/ops/pallas_patches.py:37",
+         "launches": launches["fused_patches"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+    ]
+    for k in kernels:
+        check(all(math.isfinite(k[f]) for f in ("max_abs_err", "ms",
+                                                 "plain_ms")),
+              f"non-finite measurement for {k['name']}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,55 @@
+"""lyssandra_tpu_torch — the PyTorch/CUDA port of lyssandra_tpu.
+
+The JAX package ``lyssandra_tpu`` is the reference; this package keeps its
+module names and public layouts (patches are the columns of ``X (p^2, N)``,
+a dictionary is ``D (p, K)``, ``GreedyResult`` fields are ``(N, T)``) so
+that each piece can be held against its counterpart.  It imports ``torch``
+and never ``jax``, nor any ``lyssandra_tpu`` module (importing one runs
+``lyssandra_tpu/__init__.py``, which imports ``jax``).
+
+Numerics policy (the counterpart of the reference's
+``lax.Precision.HIGHEST``): everything is float32, and float32 matrix
+products and convolutions run at full float32 precision — TF32 is off for
+both cuBLAS and cuDNN.  It is set once, here, at import.
+
+Every Pallas kernel on the ported path has a hand-written CUDA kernel
+(``csrc/``, built by ``_build`` with nvcc and bound with ctypes) and a plain
+PyTorch version in the same module.  A wrapper runs the plain version only
+for tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
+
+Ported so far: the patch ops, the DCT dictionary, the greedy OMP /
+Batch-OMP solvers and the error-constrained denoiser.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+from lyssandra_tpu_torch.config import DenoiseConfig  # noqa: E402
+from lyssandra_tpu_torch.ops import (  # noqa: E402
+    dct_dictionary,
+    extract_patches,
+    launch_counts,
+    remove_dc,
+    reset_launch_counts,
+)
+from lyssandra_tpu_torch.solvers import batch_omp, omp  # noqa: E402
+from lyssandra_tpu_torch.apps import Denoiser, denoise, psnr  # noqa: E402
+
+__all__ = [
+    "DenoiseConfig",
+    "Denoiser",
+    "batch_omp",
+    "dct_dictionary",
+    "denoise",
+    "extract_patches",
+    "launch_counts",
+    "omp",
+    "psnr",
+    "remove_dc",
+    "reset_launch_counts",
+]
+
+__version__ = "0.1.0"

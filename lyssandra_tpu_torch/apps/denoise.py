@@ -1,0 +1,162 @@
+"""Patch-based image denoising (Elad & Aharon 2006;
+``lyssandra_tpu.apps.denoise`` counterpart).
+
+Pipeline (oracle.denoise parity):
+  noisy image -> all overlapping p x p patches -> DC removal ->
+  error-constrained OMP with eps = gain * p * sigma ->
+  patch reconstruction -> overlap-add blend
+  (lam*y + sum R^T D gamma) / (lam + counts).
+
+On a GPU the patch pipeline is the fused-patches kernel and the coder's
+first phase the error-stopped OMP kernel; on the CPU both are their plain
+versions.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from lyssandra_tpu_torch.config import DenoiseConfig
+from lyssandra_tpu_torch.ops.cuda_patches import fused_patch_pipeline
+from lyssandra_tpu_torch.ops.patches import (
+    extract_patches,
+    remove_dc,
+    weighted_reconstruct,
+)
+from lyssandra_tpu_torch.solvers.greedy import (
+    GreedyResult,
+    _omp_fused_call,
+    _omp_impl,
+    batch_omp,
+)
+
+
+def _eps_two_phase(D, Xc, *, eps, T1, T_max, cap=4096, order="raster"):
+    """Two-phase error-constrained coder; returns the dense Gamma (K, N).
+
+    Phase 1: one fused pass in eps mode capped at T1 atoms.
+    Phase 2: lanes that used all T1 atoms without reaching eps are
+    compacted, ``cap`` at a time, and re-solved from scratch at T_max with
+    the batched residual form.  Greedy pursuit is deterministic, so the
+    re-solve equals a single pass at T_max on those lanes.  The loop asks
+    the device one question per round: are any lanes left.
+    """
+    K = D.shape[1]
+    N = Xc.shape[1]
+    dev = Xc.device
+    if order == "energy":
+        # difficulty-ordered lanes; the codes are the same in any order
+        perm = torch.argsort((Xc * Xc).sum(dim=0), stable=True)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(N, device=dev)
+        Xc = Xc[:, perm]
+    elif order != "raster":
+        raise ValueError(f"order must be raster or energy: {order}")
+    res = _omp_fused_call(D, Xc, T=T1, eps=eps, eps_mode=True, dense=False)
+    if order == "energy":
+        res = GreedyResult(*(f[inv] for f in res))
+        Xc = Xc[:, inv]
+    bad = (res.nsel == T1) & (res.err > eps * eps)
+    # one spare all-zero lane N takes the writes of unused compaction
+    # slots (the reference's scatter mode="drop"); padding the compact
+    # result, not the dense (K, N) Gamma, avoids copying Gamma
+    Gamma = GreedyResult(*(
+        torch.cat([f, f.new_zeros((1,) + f.shape[1:])]) for f in res
+    )).dense(K)
+    slots = torch.arange(cap, device=dev)
+    lanes = torch.arange(N, device=dev)
+    while bool(bad.any()):
+        pos = torch.cumsum(bad, dim=0) - 1               # rank among bad
+        sel = bad & (pos < cap)
+        # cols[j] = column of the j-th selected lane; unselected lanes
+        # write into the spare slot `cap`, which is dropped
+        cols = torch.zeros((cap + 1,), dtype=torch.long, device=dev)
+        cols.scatter_(0, torch.where(sel, pos, cap), lanes)
+        cols = cols[:cap]
+        rs = _omp_impl(D, Xc[:, cols], eps, T=T_max, eps_mode=True)
+        colsafe = torch.where(slots < sel.sum(), cols, N)
+        Gamma[:, colsafe] = rs.dense(K)
+        bad = bad & ~sel
+    return Gamma[:, :N]
+
+
+def _denoise_fused_impl(D, noisy, *, p, eps, T1, T_max, lam_w,
+                        order="raster"):
+    """The denoise forward: patch pipeline -> two-phase eps coder ->
+    reconstruction -> overlap-add blend."""
+    if noisy.ndim == 3:
+        Xc, means = remove_dc(extract_patches(noisy, p))
+    else:
+        Xc, means, _ = fused_patch_pipeline(noisy, p, do_dc=True)
+    Gamma = _eps_two_phase(D, Xc, eps=eps, T1=T1, T_max=T_max, order=order)
+    Xhat = D @ Gamma + means[None, :]
+    return weighted_reconstruct(Xhat, noisy, p, lam_w)
+
+
+class Denoiser:
+    """Reference-mirroring denoiser: ``denoise(img) -> img_hat``.
+
+    D: unit-norm dictionary over p x p patches (e.g. DCT or K-SVD-learned),
+    moved to ``device`` (default: where D lies, else the CPU).
+    """
+
+    def __init__(self, D, cfg: DenoiseConfig = DenoiseConfig(), *,
+                 mesh=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded denoising (mesh=) is not ported yet")
+        if isinstance(D, torch.Tensor):
+            device = D.device if device is None else device
+        else:
+            D = np.array(D, dtype=np.float32)     # a writable copy
+        self.D = torch.as_tensor(D, dtype=torch.float32, device=device)
+        self.cfg = cfg
+        self.mesh = mesh
+
+    def _fast_path(self) -> bool:
+        """True when the two-phase coder applies (T_max leaves headroom
+        above the first phase's T1 = min(10, T_max))."""
+        cfg = self.cfg
+        return self.mesh is None and cfg.T_max > min(10, cfg.T_max)
+
+    def __call__(self, noisy, sigma: float | None = None) -> torch.Tensor:
+        cfg = self.cfg
+        sigma = float(cfg.sigma if sigma is None else sigma)
+        p = cfg.patch
+        noisy = torch.as_tensor(noisy, dtype=torch.float32,
+                                device=self.D.device)
+        dim = p * p * (noisy.shape[2] if noisy.ndim == 3 else 1)
+        eps = cfg.gain * math.sqrt(dim) * sigma
+        lam_w = cfg.lam / max(sigma, 1e-12)
+        if self._fast_path():
+            return _denoise_fused_impl(
+                self.D, noisy, p=p, eps=float(eps), T1=min(10, cfg.T_max),
+                T_max=cfg.T_max, lam_w=float(lam_w), order=cfg.order)
+        if noisy.ndim == 3:
+            Xc, means = remove_dc(extract_patches(noisy, p))
+        else:
+            Xc, means, _ = fused_patch_pipeline(noisy, p, do_dc=True)
+        Gamma = torch.cat([
+            batch_omp(self.D, Xc[:, i:i + cfg.block], cfg.T_max, eps=eps)
+            for i in range(0, Xc.shape[1], cfg.block)
+        ], dim=1)
+        Xhat = self.D @ Gamma + means[None, :]
+        return weighted_reconstruct(Xhat, noisy, p, lam_w)
+
+
+def denoise(noisy, D, sigma: float, *, cfg: DenoiseConfig | None = None,
+            mesh=None, device=None) -> torch.Tensor:
+    """Functional entry point (oracle.denoise parity)."""
+    cfg = cfg or DenoiseConfig()
+    return Denoiser(D, cfg, mesh=mesh, device=device)(noisy, sigma)
+
+
+def psnr(a, b, peak: float = 255.0) -> float:
+    """Peak signal-to-noise ratio in dB, computed in float32."""
+    a = torch.as_tensor(a, dtype=torch.float32)
+    b = torch.as_tensor(b, dtype=torch.float32, device=a.device)
+    mse = torch.mean((a - b) ** 2)
+    return float(10.0 * torch.log10(peak * peak / mse))

@@ -1,0 +1,34 @@
+from lyssandra_tpu_torch.ops.cuda_omp import omp_fused
+from lyssandra_tpu_torch.ops.cuda_patches import (
+    fused_patch_pipeline,
+    fused_patch_pipeline_p1,
+)
+from lyssandra_tpu_torch.ops.dictionaries import (
+    dct_dictionary,
+    dct_dictionary_color,
+    normalize_atoms,
+)
+from lyssandra_tpu_torch.ops.patches import (
+    contrast_normalize,
+    extract_patches,
+    fold_patches,
+    n_patches,
+    reconstruct_from_patches,
+    remove_dc,
+    weighted_reconstruct,
+)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far in this process, by kernel."""
+    return {
+        "omp_fused_t": omp_fused.launches_t,
+        "omp_fused_eps": omp_fused.launches_eps,
+        "fused_patches": fused_patch_pipeline_p1.launches,
+    }
+
+
+def reset_launch_counts() -> None:
+    omp_fused.launches_t = 0
+    omp_fused.launches_eps = 0
+    fused_patch_pipeline_p1.launches = 0

@@ -1,0 +1,44 @@
+"""Carrying the reference package's state into the port.
+
+The "weights" of this system are a dictionary D and a config.  A
+dictionary learned by ``lyssandra_tpu`` (for example by its K-SVD), saved
+or handed over as a NumPy array, denoises identically here.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from lyssandra_tpu_torch.apps.denoise import Denoiser
+from lyssandra_tpu_torch.config import DenoiseConfig
+
+
+def dictionary_from_numpy(D, device=None) -> torch.Tensor:
+    """A (p, K) float array -> a contiguous float32 tensor on ``device``.
+    Warns when the atoms (columns) are not unit-norm, which every solver
+    here assumes."""
+    D = np.asarray(D)
+    if D.ndim != 2:
+        raise ValueError(f"dictionary must be (p, K), got shape {D.shape}")
+    if not np.issubdtype(D.dtype, np.floating):
+        raise TypeError(f"dictionary must be floating point, got {D.dtype}")
+    if not np.isfinite(D).all():
+        raise ValueError("dictionary has non-finite entries")
+    norms = np.linalg.norm(D.astype(np.float64), axis=0)
+    if not np.allclose(norms, 1.0, atol=1e-4):
+        warnings.warn(
+            f"dictionary atoms are not unit-norm (norms in "
+            f"[{norms.min():.4g}, {norms.max():.4g}])", stacklevel=2)
+    # a contiguous, writable float32 copy the tensor owns
+    return torch.from_numpy(np.array(D, dtype=np.float32, order="C")).to(
+        device)
+
+
+def denoiser_from_reference(D_np, cfg_dict: dict, device=None) -> Denoiser:
+    """A Denoiser from a reference dictionary and the fields of a
+    reference ``DenoiseConfig`` (``dataclasses.asdict`` of it)."""
+    return Denoiser(dictionary_from_numpy(D_np, device),
+                    DenoiseConfig(**cfg_dict), device=device)

@@ -1,0 +1,200 @@
+"""The port's OMP solvers and the plain version of its fused OMP kernel
+against lyssandra_tpu: the Pallas kernel in interpret mode, the XLA scan
+solvers on the CPU and the fp64 oracle (same float32 inputs from a numpy
+seed)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax import lax
+
+from lyssandra_tpu import oracle
+from lyssandra_tpu.ops.pallas_omp import omp_fused as pallas_omp_fused
+from lyssandra_tpu.solvers import greedy as jgreedy
+from lyssandra_tpu_torch import _build
+from lyssandra_tpu_torch.ops import cuda_omp, launch_counts
+from lyssandra_tpu_torch.solvers import greedy
+from tests.conftest import make_problem
+
+torch.set_num_threads(1)
+
+_HI = lax.Precision.HIGHEST
+
+
+def _f32(rng, **kw):
+    D, X, _ = make_problem(rng, **kw)
+    return D.astype(np.float32), X.astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _assert_result_close(got, want, *, gamma_atol=2e-5, err_atol=2e-4,
+                         mask_idx=False):
+    """idx and nsel equal, gamma within 2e-5 and err within 2e-4 — the
+    reference's own kernel-vs-scan tolerances (tests/test_pallas_omp.py)."""
+    idx, gamma, err, nsel = (np.asarray(a) for a in got)
+    widx, wgamma, werr, wnsel = (np.asarray(a) for a in want)
+    np.testing.assert_array_equal(nsel, wnsel)
+    if mask_idx:
+        keep = np.arange(idx.shape[1])[None, :] < wnsel[:, None]
+        idx, widx = idx * keep, widx * keep
+    np.testing.assert_array_equal(idx, widx)
+    np.testing.assert_allclose(gamma, wgamma, atol=gamma_atol)
+    np.testing.assert_allclose(err, werr, atol=err_atol)
+
+
+# (problem, mode) cases of tests/test_pallas_omp.py: T mode; eps mode with
+# half the lanes easy; eps mode where a whole 64-lane block is done on
+# entry and the next one converges in about one step
+@pytest.mark.parametrize("case", ["t_mode", "eps_mode", "eps_done_on_entry"])
+def test_omp_fused_reference_matches_pallas_interpret(rng, case):
+    if case == "t_mode":
+        D, X = _f32(rng, p=16, K=128, N=1024, T=4)
+        kw, block = dict(T=4), 512
+    elif case == "eps_mode":
+        D, X = _f32(rng, p=16, K=128, N=512, T=3)
+        X[:, ::2] *= 0.05
+        kw, block = dict(T=6, eps=0.3, eps_mode=True), 512
+    else:
+        D, X = _f32(rng, p=16, K=128, N=256, T=3)
+        X[:, :64] *= 1e-6
+        X[:, 64:128] *= 0.05
+        kw, block = dict(T=6, eps=0.3, eps_mode=True), 64
+    got = cuda_omp.omp_fused_reference(_t(D), _t(X), **kw)
+    want = pallas_omp_fused(jnp.asarray(D), jnp.asarray(X), block=block,
+                            interpret=True, **kw)
+    _assert_result_close(got, want, mask_idx=case != "t_mode")
+    if case == "eps_done_on_entry":
+        assert (np.asarray(got[3])[:64] == 0).all()
+        assert (np.asarray(got[1])[:64] == 0).all()
+
+
+@pytest.mark.parametrize("eps_mode", [False, True])
+def test_omp_impl_matches_jax(rng, eps_mode):
+    D, X = _f32(rng, p=16, K=64, N=300, T=4)
+    X[:, ::3] *= 0.1
+    eps = 0.2 if eps_mode else 0.0
+    got = greedy._omp_impl(_t(D), _t(X), eps, T=6, eps_mode=eps_mode)
+    want = jgreedy._omp_impl(jnp.asarray(D), jnp.asarray(X), eps, T=6,
+                             eps_mode=eps_mode, precision=_HI)
+    _assert_result_close(got, want)
+
+
+@pytest.mark.parametrize("eps_mode", [False, True])
+def test_batch_omp_impl_matches_jax(rng, eps_mode):
+    D, X = _f32(rng, p=16, K=64, N=300, T=4)
+    X[:, ::3] *= 0.1
+    eps = 0.2 if eps_mode else 0.0
+    Dt, Xt = _t(D), _t(X)
+    got = greedy._batch_omp_impl(Dt.T @ Dt, Dt.T, Xt.T @ Dt,
+                                 (Xt * Xt).sum(0), eps, T=6,
+                                 eps_mode=eps_mode)
+    Dj, Xj = jnp.asarray(D), jnp.asarray(X)
+    want = jgreedy._batch_omp_impl(
+        jnp.matmul(Dj.T, Dj, precision=_HI), Dj.T,
+        jnp.matmul(Xj.T, Dj, precision=_HI), jnp.sum(Xj * Xj, axis=0), eps,
+        T=6, eps_mode=eps_mode, precision=_HI)
+    _assert_result_close(got, want)
+
+
+@pytest.mark.parametrize("refresh", ["auto", "gram", "residual"])
+@pytest.mark.parametrize("eps", [None, 0.05])
+def test_batch_omp_supports_match_oracle(rng, refresh, eps):
+    D, X = _f32(rng, p=16, K=48, N=64, T=3)
+    got = greedy.batch_omp(D, X, 5, eps, refresh=refresh).numpy()
+    want = oracle.batch_omp(D.astype(np.float64), X.astype(np.float64), 5,
+                            eps)
+    np.testing.assert_array_equal(got != 0, want != 0)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    # omp is the residual form of the same pursuit
+    np.testing.assert_allclose(greedy.omp(D, X, 5, eps).numpy(), got,
+                               atol=1e-4)
+
+
+def test_duplicate_atoms_freeze(rng):
+    # a duplicated atom breaks the progressive factor down (nu ~ 0): the
+    # lane freezes with finite outputs, like the reference.  Lanes 0-7 are
+    # 2 e_0 over atoms 0 and 64, both e_0: step 1 leaves r = 0 exactly,
+    # step 2 re-picks atom 0 (all-zero correlations, first index wins)
+    # and freezes.
+    D, X, _ = make_problem(rng, p=16, K=128, N=256, T=4)
+    D[:, 64:] = D[:, :64]
+    D[:, 0] = D[:, 64] = np.eye(16)[0]
+    X[:, :8] = 2.0 * np.eye(16)[:, :1]
+    D, X = D.astype(np.float32), X.astype(np.float32)
+    got = cuda_omp.omp_fused_reference(_t(D), _t(X), T=8)
+    want = jgreedy._omp_impl(jnp.asarray(D), jnp.asarray(X), 0.0, T=8,
+                             eps_mode=False, precision=_HI)
+    assert np.isfinite(got[1].numpy()).all()
+    np.testing.assert_array_equal(got[3].numpy()[:8], 1)
+    np.testing.assert_array_equal(got[0].numpy()[:8], 0)
+    np.testing.assert_array_equal(got[1].numpy()[:8, 0], 2.0)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want.nsel))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want.gamma),
+                               atol=5e-5)
+
+
+def test_argmax_abs_first_index_wins_ties():
+    A = torch.tensor([[1.0, -3.0, 3.0, 2.0],
+                      [0.0, 0.0, 0.0, 0.0],
+                      [-5.0, 1.0, 5.0, -5.0]])
+    np.testing.assert_array_equal(greedy._argmax_abs(A).numpy(), [1, 0, 0])
+    np.testing.assert_array_equal(
+        greedy._argmax_abs(A).numpy(),
+        np.asarray(jgreedy._argmax_abs(jnp.asarray(A.numpy()))))
+
+
+def test_greedy_result_dense_csc_concatenate_match_jax(rng):
+    N, T, K = 40, 5, 30
+    idx = rng.integers(0, K, (N, T)).astype(np.int32)
+    gamma = rng.standard_normal((N, T)).astype(np.float32)
+    err = rng.random(N).astype(np.float32)
+    nsel = rng.integers(0, T + 1, N).astype(np.int32)
+    got = greedy.GreedyResult(_t(idx), _t(gamma), _t(err), _t(nsel))
+    want = jgreedy.GreedyResult(*(jnp.asarray(a)
+                                  for a in (idx, gamma, err, nsel)))
+    np.testing.assert_allclose(got.dense(K).numpy(), np.asarray(want.dense(K)),
+                               atol=1e-6)
+    np.testing.assert_allclose(got.to_csc(K).toarray(),
+                               want.to_csc(K).toarray(), atol=1e-6)
+    both = greedy.GreedyResult.concatenate([got, got])
+    assert tuple(both.idx.shape) == (2 * N, T)
+    np.testing.assert_allclose(both.dense(K).numpy()[:, N:],
+                               got.dense(K).numpy())
+
+
+def test_wrapper_runs_plain_version_on_cpu_and_counts_nothing(rng):
+    D, X = _f32(rng, p=12, K=100, N=100, T=4)
+    before = launch_counts()
+    got = cuda_omp.omp_fused(_t(D), _t(X), T=4)
+    want = cuda_omp.omp_fused_reference(_t(D), _t(X), T=4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    res = greedy._omp_fused_call(_t(D), _t(X), T=4, eps=0.0, eps_mode=False,
+                                 dense=True)
+    assert tuple(res.shape) == (100, 100)
+    assert launch_counts() == before
+    # the gate sends CPU tensors to the batched forms, never the kernel
+    assert not greedy._fused_supported(_t(D), _t(X), 4)
+
+
+def test_kernel_envelope():
+    assert cuda_omp.kernel_supports(64, 8)
+    assert cuda_omp.kernel_supports(512, 32)
+    assert not cuda_omp.kernel_supports(513, 8)
+    assert not cuda_omp.kernel_supports(512, 200)   # state exceeds smem
+    assert cuda_omp.lane_smem_bytes(64, 8) == 4 * (128 + 512 + 64 + 48)
+
+
+def test_kernel_library_named_by_source_hash():
+    # built only on first use, never at import: nothing here needs nvcc
+    names = sorted(p.name for p in _build.sources())
+    assert names == ["errors.cu", "fused_patches.cu", "omp_fused.cu"]
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert path == _build.library_path()
+    assert path.name.startswith("liblyssa_kernels_")

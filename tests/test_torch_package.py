@@ -1,0 +1,109 @@
+"""Package-level contracts of the port: it never imports JAX, its copied
+pieces match the reference's, and no kernel launches on the CPU."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import lyssandra_tpu_torch as lt
+from lyssandra_tpu.config import DenoiseConfig as JDenoiseConfig
+from lyssandra_tpu.utils.datasets import synthetic_image as j_synthetic
+from lyssandra_tpu_torch.utils.datasets import synthetic_image
+from lyssandra_tpu_torch.utils.interop import (
+    denoiser_from_reference,
+    dictionary_from_numpy,
+)
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "lyssandra_tpu_torch")
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, lyssandra_tpu_torch, lyssandra_tpu_torch.utils."
+            "interop; bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'lyssandra_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_never_import_jax_or_the_reference():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|lyssandra_tpu)\b", re.M)
+    for dirpath, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as f:
+                    assert not pattern.search(f.read()), name
+
+
+def test_numerics_policy_is_full_fp32():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_denoise_config_matches_reference():
+    ours = [(f.name, f.default) for f in dataclasses.fields(lt.DenoiseConfig)]
+    ref = [(f.name, f.default) for f in dataclasses.fields(JDenoiseConfig)]
+    assert ours == ref
+
+
+@pytest.mark.parametrize("kind", ["smooth", "texture", "edges", "mix"])
+def test_synthetic_image_matches_reference(kind):
+    np.testing.assert_array_equal(synthetic_image(kind, 48, seed=7),
+                                  j_synthetic(kind, 48, seed=7))
+
+
+def test_launch_counters_stay_zero_on_cpu(rng):
+    lt.reset_launch_counts()
+    img = 255.0 * rng.random((24, 24))
+    noisy = img + 20.0 * rng.standard_normal(img.shape)
+    lt.denoise(noisy, lt.dct_dictionary(8, 64), 20.0,
+               cfg=lt.DenoiseConfig(sigma=20.0, T_max=12))
+    D = lt.dct_dictionary(4, 36)
+    lt.batch_omp(D, torch.randn(16, 40), 3)
+    assert lt.launch_counts() == {
+        "omp_fused_t": 0, "omp_fused_eps": 0, "fused_patches": 0}
+
+
+def test_dictionary_from_numpy_checks(rng):
+    D = rng.standard_normal((16, 20))
+    D /= np.linalg.norm(D, axis=0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        t = dictionary_from_numpy(D)
+    assert t.dtype == torch.float32 and t.is_contiguous()
+    np.testing.assert_allclose(t.numpy(), D, atol=1e-7)
+    assert dictionary_from_numpy(D.T.copy().T).is_contiguous()
+    with pytest.warns(UserWarning, match="unit-norm"):
+        dictionary_from_numpy(2.0 * D)
+    with pytest.raises(ValueError):
+        dictionary_from_numpy(D[0])
+    with pytest.raises(TypeError):
+        dictionary_from_numpy(np.ones((4, 4), np.int32))
+    bad = D.copy()
+    bad[0, 0] = np.nan
+    with pytest.raises(ValueError):
+        dictionary_from_numpy(bad)
+
+
+def test_denoiser_from_reference_takes_reference_config():
+    cfg = JDenoiseConfig(sigma=15.0, T_max=12, order="energy")
+    den = denoiser_from_reference(np.asarray(lt.dct_dictionary(8, 64)),
+                                  dataclasses.asdict(cfg))
+    assert dataclasses.asdict(den.cfg) == dataclasses.asdict(cfg)
+    with pytest.raises(TypeError):
+        denoiser_from_reference(np.eye(64), {"not_a_field": 1})

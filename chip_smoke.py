@@ -20,13 +20,27 @@ Phases, in order; any failure raises and exits non-zero:
      32; p=512 and T=32, whose shared memory needs the opt-in above 48 KB;
      lanes done on entry; whitening at p=5): the same checks, and a T the
      kernel cannot hold must raise;
-  6. the main path, counted: Batch-OMP (p=64, K=1024, T=8, N=262144)
-     through lyssandra_tpu_torch.batch_omp and the sigma=25 denoise of the
-     512x512 image through Denoiser; every kernel must have launched;
-     the denoised image must beat the noisy one by > 3 dB and agree within
-     0.05 dB with a path built from the plain versions;
+  5c. K4/K5 (fused group OMP) against its plain version at the group
+     shape p=64, K=1024, gs=4 (256 groups), T=4, N=32768: a well-posed
+     group-sparse problem (group ids, nsel, idx equal, gamma within 1e-4),
+     Gaussian signals (>= 99.9% of lanes pick the same groups) and lanes
+     that freeze on a duplicated group; then its envelope: ragged groups
+     (K=62, p=16), gs=8 with T=4 (32 slots), p=512 (shared memory above
+     48 KB), T > n_groups through group_omp, and T*gs > 32, which must
+     raise;
+  6. the main paths, each counted on its own: (a) Batch-OMP (p=64, K=1024,
+     T=8, N=262144) through lyssandra_tpu_torch.batch_omp and the
+     sigma=25 denoise of the 512x512 image through Denoiser; (b)
+     SparseEncoder("group_omp", T=4, 256 groups of 4) on the 262,144
+     Batch-OMP signals, 16 blocks of 16384 = 16 group-kernel launches,
+     idx agreeing with the plain version on >= 99.9% of lanes; (c)
+     SparseEncoder("bomp", T=8) on the same signals, equal to batch_omp;
+     every kernel must have launched on one of the paths; the denoised
+     image must beat the noisy one by > 3 dB and agree within 0.05 dB with
+     a path built from the plain versions;
   7. times (median of 5, CUDA events) of the kernel path and the plain
-     path, patches/s and denoise seconds;
+     path, patches/s and denoise seconds, the group encoder's patches/s,
+     and the bomp encoder (blocks of 16384) against one batch_omp call;
 then one JSON line of per-kernel results and, last, the result line.
 Nothing runs on the CPU when there is no GPU.
 """
@@ -43,6 +57,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 P, K, T = 64, 1024, 8               # the Batch-OMP benchmark's shape
+GS, T_GROUP = 4, 4                  # the group-OMP shape (256 groups)
 BENCH_BLOCK, BENCH_STEPS = 32768, 8  # 262,144 lanes, made as bench.py does
 SIGMA, IMG_SIZE = 25.0, 512
 REPS = 5
@@ -62,6 +77,19 @@ def make_problem(rng, p, K, N, T):
     for n in range(N):
         Gamma[rng.choice(K, T, replace=False), n] = rng.standard_normal(T)
     X = D @ Gamma + 0.01 * rng.standard_normal((p, N))
+    return D.astype(np.float32), X.astype(np.float32)
+
+
+def group_problem(rng, p, K, gs, N, n_active):
+    """Unit-norm Gaussian dictionary with groups of gs consecutive atoms,
+    and signals that are noisy combinations of n_active random groups."""
+    D = rng.standard_normal((p, K))
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    ng = K // gs
+    X = 0.01 * rng.standard_normal((p, N))
+    for n in range(N):
+        for g in rng.choice(ng, n_active, replace=False):
+            X[:, n] += D[:, g * gs:(g + 1) * gs] @ rng.standard_normal(gs)
     return D.astype(np.float32), X.astype(np.float32)
 
 
@@ -104,6 +132,9 @@ def main():
     import lyssandra_tpu_torch as lt
     from lyssandra_tpu_torch import _build
     from lyssandra_tpu_torch.apps.denoise import Denoiser
+    from lyssandra_tpu_torch.ops.cuda_group import (
+        group_omp_fused, group_omp_fused_reference,
+    )
     from lyssandra_tpu_torch.ops.cuda_omp import (
         omp_fused, omp_fused_reference,
     )
@@ -269,7 +300,85 @@ def main():
         check(max(errs) <= 1e-4, f"K3 33x47 p={p} {sorted(kw)}: {errs}")
         print(f"K3 33x47 p={p} {sorted(kw)}: max |d| = {errs}")
 
-    # --- 6. the main path, counted
+    # --- 5c. K4/K5 against its plain version, then its envelope
+    def group_case(D, X, groups, T_, what, agree_min=1.0):
+        got = group_omp_fused(D, X, groups, T_)
+        want = group_omp_fused_reference(D, X, groups, T_)
+        same = (got[4] == want[4]).all(dim=1)
+        agree = float(same.float().mean())
+        check(agree >= agree_min, f"{what}: group ids agree on {agree}")
+        check(torch.equal(got[3], want[3]) if agree_min == 1.0
+              else float((got[3] == want[3]).float().mean()) >= agree_min,
+              f"{what}: nsel")
+        check(torch.equal(got[0][same], want[0][same]), f"{what}: idx")
+        check(bool(torch.isfinite(got[1]).all()), f"{what}: gamma finite")
+        err = float((got[1] - want[1]).abs()[same].max())
+        check(err <= 1e-4, f"{what}: gamma {err}")
+        print(f"{what}: group ids agree on {agree:.6f} of lanes; max "
+              f"|dgamma| there {err:.3g}; mean nsel "
+              f"{float(got[3].float().mean()):.3f}")
+        return got, err
+
+    groups = np.repeat(np.arange(K // GS), GS)
+    Dg, Xg = group_problem(np.random.default_rng(2), P, K, GS, 32768,
+                           T_GROUP)
+    Dg, Xg = dt(Dg), dt(Xg)
+    _, k4_err = group_case(Dg, Xg, groups, T_GROUP,
+                           "K4 well-posed p=64 K=1024 gs=4 T=4 N=32768")
+    Xk4 = Xb[:, :32768].contiguous()
+    group_case(Db, Xk4, groups, T_GROUP, "K4 Gaussian N=32768",
+               agree_min=0.999)
+    # the freeze rule: group 1 repeats group 0's atoms e_0..e_3 and lanes
+    # 0-7 are 2 e_0, so step 1 leaves r = 0 and step 2's block is singular
+    Dz = Db.clone()
+    Dz[:, 0:4] = Dz[:, 4:8] = torch.eye(P, device=dev)[:, :4]
+    Xz = Xk4[:, :4096].clone()
+    Xz[:, :8] = 2.0 * torch.eye(P, device=dev)[:, :1]
+    got, _ = group_case(Dz, Xz, groups, T_GROUP, "K4 duplicated group")
+    check(bool((got[3][:8] == 1).all()) and bool((got[1][:8, 0] == 2).all()),
+          "K4 freeze on a duplicated group")
+    k4_ms = cuda_ms(torch, lambda: group_omp_fused(Db, Xk4, groups, T_GROUP))
+    k4_plain_ms = cuda_ms(torch, lambda: group_omp_fused_reference(
+        Db, Xk4, groups, T_GROUP))
+    print(f"K4 p=64 K=1024 gs=4 T=4 N=32768: kernel {k4_ms:.3f} ms, plain "
+          f"{k4_plain_ms:.3f} ms")
+
+    rng = np.random.default_rng(3)
+    Dr = rng.standard_normal((16, 62))
+    Dr /= np.linalg.norm(Dr, axis=0, keepdims=True)
+    Xr = rng.standard_normal((16, 1000))
+    group_case(dt(Dr.astype(np.float32)), dt(Xr.astype(np.float32)),
+               np.minimum(np.arange(62) // 4, 14), 3,
+               "envelope ragged groups K=62 p=16 (gs=6) T=3", agree_min=0.999)
+    D8, X8 = group_problem(rng, P, K, 8, 2048, 4)
+    group_case(dt(D8), dt(X8), np.repeat(np.arange(K // 8), 8), 4,
+               "envelope gs=8 T=4 (32 slots)")
+    D5, X5 = group_problem(rng, 512, K, GS, 1024, 4)
+    D5, X5 = dt(D5), dt(X5)
+    group_case(D5, X5, groups, 4, "envelope p=512 gs=4 T=4")
+    Dt8, Xt8 = group_problem(rng, P, 32, GS, 1024, 2)
+    Dt8, Xt8 = dt(Dt8), dt(Xt8)
+    g8 = np.repeat(np.arange(8), GS)
+    before = lt.launch_counts()["group_omp_fused"]
+    res8 = lt.group_omp(Dt8, Xt8, g8, 10, dense=False)    # T_eff = 8
+    check(lt.launch_counts()["group_omp_fused"] == before + 1,
+          "group_omp T > n_groups did not take the kernel")
+    want8 = group_omp_fused_reference(Dt8, Xt8, g8, 8)
+    agree = float((res8.idx == want8[0]).all(dim=1).float().mean())
+    check(tuple(res8.idx.shape) == (1024, 32) and agree >= 0.999,
+          f"T > n_groups: idx agree on {agree}")
+    check(bool((res8.nsel == want8[3] * GS).float().mean() >= 0.999),
+          "T > n_groups: nsel")
+    print(f"envelope T=10 > 8 groups through group_omp: idx agree on "
+          f"{agree:.6f} of lanes, mean nsel {float(res8.nsel.float().mean())}")
+    try:
+        group_omp_fused(D5, X5, groups, 9)
+        check(False, "T*gs = 36 > 32 slots did not raise")
+    except ValueError as e:
+        print(f"T*gs=36 raises: {e}")
+    del D5, X5, Dz, Xz
+
+    # --- 6. the main paths, each counted on its own
     cfg = lt.DenoiseConfig(sigma=SIGMA)
     denoiser = Denoiser(Dd, cfg)
     lt.reset_launch_counts()
@@ -277,9 +386,44 @@ def main():
     out = denoiser(noisy)
     torch.cuda.synchronize()
     launches = lt.launch_counts()
-    print(f"main-path launches: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} not launched on the main path")
+    print(f"path (a) batch_omp + denoise launches: {launches}")
+
+    group_enc = lt.SparseEncoder("group_omp", {"T": T_GROUP,
+                                               "groups": groups})
+    lt.reset_launch_counts()
+    gres = group_enc.encode(Xb, Db, dense=False)
+    torch.cuda.synchronize()
+    launches_g = lt.launch_counts()
+    print(f"path (b) SparseEncoder('group_omp') launches: {launches_g}")
+    n_blocks = Xb.shape[1] // group_enc.block
+    check(launches_g["group_omp_fused"] == n_blocks,
+          f"group encoder launched the group kernel "
+          f"{launches_g['group_omp_fused']} times, not {n_blocks}")
+    gwant = group_omp_fused_reference(Db, Xb, groups, T_GROUP)
+    check(tuple(gres.idx.shape) == (Xb.shape[1], T_GROUP * GS),
+          "group encoder idx shape")
+    check(bool(torch.isfinite(gres.gamma).all()), "group encoder finite")
+    agree = float((gres.idx == gwant[0]).all(dim=1).float().mean())
+    check(agree >= 0.999, f"group encoder idx agreement {agree}")
+    print(f"group encoder N={Xb.shape[1]}: idx agree with the plain version "
+          f"on {agree:.6f} of lanes")
+    del gwant
+
+    bomp_enc = lt.SparseEncoder("bomp", {"T": T})
+    lt.reset_launch_counts()
+    bres = bomp_enc.encode(Xb, Db, dense=False)
+    torch.cuda.synchronize()
+    launches_b = lt.launch_counts()
+    print(f"path (c) SparseEncoder('bomp') launches: {launches_b}")
+    check(launches_b["omp_fused_t"] == Xb.shape[1] // bomp_enc.block,
+          "bomp encoder launches")
+    for a, b in zip(bres, res):
+        check(torch.equal(a, b), "bomp encoder differs from batch_omp")
+    print("bomp encoder equals batch_omp on all lanes")
+
+    for name in launches:
+        total = launches[name] + launches_g[name] + launches_b[name]
+        check(total > 0, f"kernel {name} not launched on any main path")
 
     ref = omp_fused_reference(Db, Xb, T=T)
     check(tuple(res.idx.shape) == (Xb.shape[1], T), "batch_omp idx shape")
@@ -320,6 +464,17 @@ def main():
     print(f"batch_omp p={P} K={K} T={T} N={N}: kernel path "
           f"{bomp_ms:.3f} ms = {N / bomp_ms * 1e3:.1f} patches/s; plain "
           f"{bomp_plain_ms:.3f} ms = {N / bomp_plain_ms * 1e3:.1f} patches/s")
+    genc_ms = cuda_ms(torch, lambda: group_enc.encode(Xb, Db, dense=False))
+    gone_ms = cuda_ms(torch, lambda: lt.group_omp(Db, Xb, groups, T_GROUP,
+                                                  dense=False))
+    print(f"group encoder (blocks of {group_enc.block}) p={P} K={K} gs={GS} "
+          f"T={T_GROUP} N={N}: {genc_ms:.3f} ms = "
+          f"{N / genc_ms * 1e3:.1f} patches/s; one group_omp call "
+          f"{gone_ms:.3f} ms = {N / gone_ms * 1e3:.1f} patches/s")
+    benc_ms = cuda_ms(torch, lambda: bomp_enc.encode(Xb, Db, dense=False))
+    print(f"bomp encoder (blocks of {bomp_enc.block}) N={N}: "
+          f"{benc_ms:.3f} ms = {N / benc_ms * 1e3:.1f} patches/s; one "
+          f"batch_omp call {N / bomp_ms * 1e3:.1f} patches/s")
     den_ms = cuda_ms(torch, lambda: denoiser(noisy))
     den_plain_ms = cuda_ms(torch, plain_denoise)
     print(f"denoise {IMG_SIZE}^2: kernel path {den_ms / 1e3:.4f} s, plain "
@@ -329,7 +484,8 @@ def main():
         {"name": "omp_fused (fixed T)", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
          "replaces": "lyssandra_tpu/ops/pallas_omp.py:79",
-         "launches": launches["omp_fused_t"], "max_abs_err": k1_err,
+         "launches": launches["omp_fused_t"] + launches_b["omp_fused_t"],
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms},
         {"name": "omp_fused (eps exit)", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
@@ -341,6 +497,11 @@ def main():
          "replaces": "lyssandra_tpu/ops/pallas_patches.py:37",
          "launches": launches["fused_patches"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "group_omp_fused", "route": "cuda",
+         "source": "lyssandra_tpu_torch/csrc/group_omp.cu",
+         "replaces": "lyssandra_tpu/ops/pallas_group.py:52,253",
+         "launches": launches_g["group_omp_fused"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms},
     ]
     for k in kernels:
         check(all(math.isfinite(k[f]) for f in ("max_abs_err", "ms",

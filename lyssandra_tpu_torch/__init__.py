@@ -17,8 +17,9 @@ Every Pallas kernel on the ported path has a hand-written CUDA kernel
 PyTorch version in the same module.  A wrapper runs the plain version only
 for tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
 
-Ported so far: the patch ops, the DCT dictionary, the greedy OMP /
-Batch-OMP solvers and the error-constrained denoiser.
+Ported so far: the patch ops, the DCT dictionary, the greedy solvers
+(OMP, Batch-OMP, group OMP, thresholding), the ``SparseEncoder`` front end
+with those routes, and the error-constrained denoiser.
 """
 
 import torch
@@ -35,21 +36,32 @@ from lyssandra_tpu_torch.ops import (  # noqa: E402
     remove_dc,
     reset_launch_counts,
 )
-from lyssandra_tpu_torch.solvers import batch_omp, omp  # noqa: E402
+from lyssandra_tpu_torch.solvers import (  # noqa: E402
+    SparseEncoder,
+    batch_omp,
+    group_omp,
+    omp,
+    sparse_encoder,
+    threshold_code,
+)
 from lyssandra_tpu_torch.apps import Denoiser, denoise, psnr  # noqa: E402
 
 __all__ = [
     "DenoiseConfig",
     "Denoiser",
+    "SparseEncoder",
     "batch_omp",
     "dct_dictionary",
     "denoise",
     "extract_patches",
+    "group_omp",
     "launch_counts",
     "omp",
     "psnr",
     "remove_dc",
     "reset_launch_counts",
+    "sparse_encoder",
+    "threshold_code",
 ]
 
 __version__ = "0.1.0"

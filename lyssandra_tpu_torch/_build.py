@@ -1,10 +1,11 @@
 """Builds the CUDA kernels in ``csrc/`` and loads them with ctypes.
 
 Every ``csrc/*.cu`` file has a plain C interface (no PyTorch headers, so
-nvcc takes seconds, not minutes).  They are compiled together for Hopper
-(``sm_90a``) into one shared library under ``_build/``, named by a hash of
-the sources and flags, at first use — never at import, so the package and
-its CPU tests need neither nvcc nor a GPU.  Each C entry point launches on
+nvcc takes seconds, not minutes).  They are compiled for Hopper
+(``sm_90a``), one nvcc process per source, all started together, and
+linked into one shared library under ``_build/``, named by a hash of the
+sources and flags, at first use — never at import, so the package and its
+CPU tests need neither nvcc nor a GPU.  Each C entry point launches on
 the stream it is given and returns ``cudaGetLastError()``; ``check`` turns
 a non-zero code into an exception.
 """
@@ -25,7 +26,7 @@ BUILD_DIR = Path(__file__).parent / "_build"
 SMEM_PER_BLOCK = 232448
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -36,6 +37,8 @@ _SIGNATURES = {
     # X, D, p, K, N, T, eps2, eps_mode, warps, idx, gamma, err, nsel, stream
     "lyssa_omp_fused": [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
                         _P],
+    # X, Dp, p, ng, gs, N, T, warps, gamma, gidx, err, nsel, stream
+    "lyssa_group_omp": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # img, H, W, p, do_dc, do_norm, eps, Wm, off, X, means, scales, stream
     "lyssa_fused_patches": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P,
                             _P],
@@ -65,22 +68,49 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run(cmd: list[str], proc: subprocess.Popen) -> str:
+    """Wait for an nvcc process; raise with its output if it failed, else
+    return its stderr."""
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{' '.join(cmd)}\n{stdout}{stderr}")
+    return stderr
+
+
+def _start(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
 def build(extra_flags: tuple[str, ...] = ()) -> str:
-    """Compile all sources into ``library_path()``; return nvcc's stderr
+    """Compile every source into an object, one nvcc each and all at once,
+    then link them into ``library_path()``.  Returns the compilers' stderr
     (where ``-Xptxas -v`` reports registers and shared memory)."""
     out = library_path()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-           *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)       # atomic: a reader never sees half a library
-    return proc.stderr
+    nvcc = _nvcc()
+    tag = f"{out.name}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    cmds = [[nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)]
+    procs = [_start(cmd) for cmd in cmds]
+    try:
+        logs = [_run(cmd, proc) for cmd, proc in zip(cmds, procs)]
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        logs.append(_run(link, _start(link)))
+        os.replace(tmp, out)   # atomic: a reader never sees half a library
+    finally:
+        for proc in procs:     # a failed compile leaves none running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return "".join(logs)
 
 
 @functools.cache

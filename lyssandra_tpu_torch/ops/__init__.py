@@ -1,3 +1,4 @@
+from lyssandra_tpu_torch.ops.cuda_group import group_omp_fused
 from lyssandra_tpu_torch.ops.cuda_omp import omp_fused
 from lyssandra_tpu_torch.ops.cuda_patches import (
     fused_patch_pipeline,
@@ -25,6 +26,7 @@ def launch_counts() -> dict[str, int]:
         "omp_fused_t": omp_fused.launches_t,
         "omp_fused_eps": omp_fused.launches_eps,
         "fused_patches": fused_patch_pipeline_p1.launches,
+        "group_omp_fused": group_omp_fused.launches,
     }
 
 
@@ -32,3 +34,4 @@ def reset_launch_counts() -> None:
     omp_fused.launches_t = 0
     omp_fused.launches_eps = 0
     fused_patch_pipeline_p1.launches = 0
+    group_omp_fused.launches = 0

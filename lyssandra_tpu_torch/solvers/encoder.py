@@ -1,0 +1,145 @@
+"""`SparseEncoder` front end: algorithm name + params -> batched solver
+(``lyssandra_tpu.solvers.encoder`` counterpart).
+
+Validates atom norms, chunks the signal matrix into fixed-size blocks
+(the last one zero-padded) and codes the blocks one after another on one
+device.  Routes ported so far: ``bomp``/``batch_omp``, ``omp``,
+``group_omp`` and the thresholding coders.  The reference's other routes
+raise ``NotImplementedError`` naming the ROADMAP item that ports them, and
+so does a data ``mesh`` (ROADMAP A13).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from lyssandra_tpu_torch.solvers import greedy
+
+_THRESHOLDING = ("thresholding", "soft_thresholding", "hard_thresholding")
+_CONVEX = ("lasso", "feature_sign", "fss", "lars", "lasso_lars")
+# routes of the reference not ported yet -> the ROADMAP item that ports them
+_NOT_PORTED = {
+    "nn_omp": "A10",
+    "lasso": "A8", "feature_sign": "A8", "fss": "A8",
+    "lars": "A8", "lasso_lars": "A8", "fista": "A8",
+    "llc": "A10",
+}
+
+
+class SparseEncoder:
+    """Encode signal columns into sparse codes over a fixed dictionary.
+
+    algorithm: 'omp' | 'bomp' (batch_omp) | 'group_omp' | 'thresholding'
+               ('soft_thresholding', 'hard_thresholding')
+    params: algorithm kwargs (T, eps, lam, groups, kind, ...).
+    block:  signals per solver call; longer inputs are coded in blocks of
+            this size, the last one zero-padded.  Default 16384 for greedy
+            routes, 2048 for convex ones (the reference's defaults, tuned
+            on a TPU).
+    mesh:   accepted for the reference's signature; only None is ported.
+    device: where D and X go (default: where D lies).
+    """
+
+    def __init__(
+        self,
+        algorithm: str = "bomp",
+        params: dict[str, Any] | None = None,
+        *,
+        block: int | None = None,
+        mesh=None,
+        check_atoms: bool = True,
+        device=None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "SparseEncoder(mesh=...) is not ported yet (ROADMAP A13)")
+        self.algorithm = algorithm
+        self.params = dict(params or {})
+        if block is None:
+            block = 2048 if algorithm in _CONVEX else 16384
+        self.block = block
+        self.check_atoms = check_atoms
+        self.device = device
+
+    # -- internals ---------------------------------------------------------
+
+    def _solver(self):
+        alg = self.algorithm
+        if alg in ("bomp", "batch_omp"):
+            return greedy.batch_omp
+        if alg == "omp":
+            return greedy.omp
+        if alg == "group_omp":
+            return greedy.group_omp
+        if alg in _THRESHOLDING:
+            kind = "hard" if alg == "hard_thresholding" else self.params.get(
+                "kind", "soft")
+            return lambda D, X, **kw: greedy.threshold_code(
+                D, X, self.params["lam"], kind)
+        if alg in _NOT_PORTED:
+            raise NotImplementedError(
+                f"SparseEncoder route {alg!r} is not ported yet (ROADMAP "
+                f"{_NOT_PORTED[alg]})")
+        raise ValueError(f"unknown algorithm: {self.algorithm}")
+
+    def _solver_kwargs(self):
+        if self.algorithm in _THRESHOLDING:
+            return {}
+        kw = dict(self.params)
+        kw.pop("kind", None)
+        return kw
+
+    # greedy routes whose solvers return a compact GreedyResult when asked
+    # (group_omp's compact slots are T * group_size wide)
+    _COMPACT = ("bomp", "batch_omp", "omp", "nn_omp", "group_omp")
+
+    # -- public API --------------------------------------------------------
+
+    def encode(self, X, D, *, dense: bool = True):
+        """Encode X (p, N) over D (p, K).
+
+        dense=True: dense code matrix Gamma (K, N).
+        dense=False (greedy routes only): compact GreedyResult with
+        idx/gamma (N, T), without the (K, N) scatter.
+        """
+        if not dense and self.algorithm not in self._COMPACT:
+            raise ValueError(
+                f"dense=False needs a greedy route {self._COMPACT}, "
+                f"got {self.algorithm!r}")
+        device = self.device
+        if device is None and isinstance(D, torch.Tensor):
+            device = D.device
+        D = greedy._as_f32(D, device)
+        if self.check_atoms:
+            nrm = torch.linalg.norm(D, dim=0)
+            if not torch.allclose(nrm, torch.ones_like(nrm), atol=1e-3):
+                raise ValueError(
+                    "dictionary atoms must be unit-norm (got norms in "
+                    f"[{float(nrm.min()):.4f}, {float(nrm.max()):.4f}])")
+        X = greedy._as_f32(X, D.device)
+        N = X.shape[1]
+        solver = self._solver()
+        kw = self._solver_kwargs()
+        if not dense:
+            kw["dense"] = False
+        if N <= self.block:
+            return solver(D, X, **kw)
+
+        # pad to full blocks so every call sees the same shape
+        nblocks = math.ceil(N / self.block)
+        Xp = torch.nn.functional.pad(X, (0, nblocks * self.block - N))
+        outs = [solver(D, Xp[:, b * self.block:(b + 1) * self.block], **kw)
+                for b in range(nblocks)]
+        if not dense:
+            res = greedy.GreedyResult.concatenate(outs)
+            return greedy.GreedyResult(*(a[:N] for a in res))
+        return torch.cat(outs, dim=1)[:, :N]
+
+
+def sparse_encoder(algorithm: str = "bomp", params: dict | None = None,
+                   **kw) -> SparseEncoder:
+    """Reference-style constructor alias."""
+    return SparseEncoder(algorithm, params, **kw)

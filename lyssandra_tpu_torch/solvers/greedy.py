@@ -99,11 +99,15 @@ def _solve_gamma(Linv: torch.Tensor, a0sel: torch.Tensor) -> torch.Tensor:
     return torch.einsum("njt,nj->nt", Linv, y)
 
 
+def _argmax_first(A: torch.Tensor) -> torch.Tensor:
+    """First index of the max A[n, :] per row (np.argmax tie rule)."""
+    mx = A.amax(dim=1, keepdim=True)
+    return (A == mx).to(torch.uint8).argmax(dim=1).to(torch.int32)
+
+
 def _argmax_abs(A: torch.Tensor) -> torch.Tensor:
     """First index of the max |A[n, :]| per row (np.argmax tie rule)."""
-    s = A.abs()
-    mx = s.amax(dim=1, keepdim=True)
-    return (s == mx).to(torch.uint8).argmax(dim=1).to(torch.int32)
+    return _argmax_first(A.abs())
 
 
 def _freeze(frozen: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
@@ -279,16 +283,245 @@ def batch_omp(D, X, T: int, eps: float | None = None, *,
 
 
 def omp(D, X, T: int, eps: float | None = None, *, dense: bool = True,
-        device=None):
-    """Orthogonal Matching Pursuit with explicit residual (oracle.omp)."""
+        fused: bool = True, device=None):
+    """Orthogonal Matching Pursuit with explicit residual (oracle.omp).
+    ``fused=False`` forces the batched form on any device."""
     if device is None and isinstance(D, torch.Tensor):
         device = D.device
     D = _as_f32(D, device)
     X = _as_f32(X, device)
-    if _fused_supported(D, X, T):
+    if fused and _fused_supported(D, X, T):
         return _omp_fused_call(
             D, X, T=T, eps=0.0 if eps is None else float(eps),
             eps_mode=eps is not None, dense=dense)
     res = _omp_impl(D, X, 0.0 if eps is None else float(eps), T=T,
                     eps_mode=eps is not None)
     return res.dense(D.shape[1]) if dense else res
+
+
+def _chol_small_inv(S: torch.Tensor, gs: int, jitter, *,
+                    pivot_min: float = 0.0, floor: float = 1e-30):
+    """Unrolled Cholesky of batched tiny SPD blocks and its inverse factor.
+
+    S: (N, gs, gs) (only the lower triangle is read); jitter: scalar or
+    (N,) added to the diagonal.  Returns (Linv (N, gs, gs), zero above the
+    diagonal; ok (N,) = every pivot > pivot_min).  A pivot is clamped to
+    ``floor`` before its square root.  The defaults are the scan solver's;
+    the fused kernel's plain version passes pivot_min=1e-8, floor=1e-12.
+    """
+    L = [[None] * gs for _ in range(gs)]
+    ok = None
+    for i in range(gs):
+        s = S[:, i, i] + jitter
+        for k in range(i):
+            s = s - L[i][k] * L[i][k]
+        okk = s > pivot_min
+        ok = okk if ok is None else (ok & okk)
+        dii = torch.sqrt(s.clamp_min(floor))
+        L[i][i] = dii
+        inv_dii = 1.0 / dii
+        for j in range(i + 1, gs):
+            s2 = S[:, j, i]
+            for k in range(i):
+                s2 = s2 - L[j][k] * L[i][k]
+            L[j][i] = s2 * inv_dii
+    zero = torch.zeros_like(L[0][0])
+    inv = [[zero] * gs for _ in range(gs)]
+    for j in range(gs):
+        for i in range(j, gs):
+            acc = zero
+            for k in range(j, i):
+                acc = acc - L[i][k] * inv[k][j]
+            if i == j:
+                acc = acc + 1.0
+            inv[i][j] = acc / L[i][i]
+    Linv = torch.stack([torch.stack(row, dim=-1) for row in inv], dim=-2)
+    return Linv, ok
+
+
+def _refined_solve(Linv, a0sel, Dsel, Xt):
+    """gamma = (L L^T)^{-1} a0 followed by two rounds of iterative
+    refinement against the explicit residual.  Returns (gamma, r)."""
+    gamma = _solve_gamma(Linv, a0sel)
+    for _ in range(2):
+        r = Xt - torch.einsum("na,nap->np", gamma, Dsel)
+        gamma = gamma + _solve_gamma(
+            Linv, torch.einsum("nap,np->na", Dsel, r))
+    return gamma, Xt - torch.einsum("na,nap->np", gamma, Dsel)
+
+
+def _group_omp_impl(D, X, members, mmask, member_oh, eps, *, n_groups: int,
+                    gs: int, T: int, eps_mode: bool):
+    """Progressive block inverse-Cholesky group pursuit (the reference's
+    scan, batched over lanes).
+
+    members: (n_groups, gs) atom ids, padded slots 0; mmask: their validity.
+    The active set lives in T group slots of gs atom slots (A = T*gs), and
+    each step appends a gs-wide block to the inverse factor:
+
+        W = Linv g_cross,  S = G_new - W^T W,  Lb = chol(S),
+        new rows = [-Lb^{-1} W^T Linv | Lb^{-1}].
+
+    Padded member slots carry identity rows, so their coefficients are 0.
+    A failed block factorization is retried with a ridge of
+    1e-2 (max|S| + 1e-3); if that fails too the lane freezes.  Lanes also
+    freeze once every group is selected and, in eps mode, on convergence.
+    """
+    p, K = D.shape
+    N = X.shape[1]
+    A = T * gs
+    dev, dt = D.device, D.dtype
+    Xt = X.T
+    Dt = D.T
+    eye = torch.eye(gs, dtype=dt, device=dev)
+    rows = torch.arange(N, device=dev)
+    r = Xt
+    Dsel = torch.zeros((N, A, p), dtype=dt, device=dev)
+    Linv = torch.zeros((N, A, A), dtype=dt, device=dev)
+    idx = torch.zeros((N, A), dtype=torch.int32, device=dev)
+    smask = torch.zeros((N, A), dtype=dt, device=dev)
+    a0sel = torch.zeros((N, A), dtype=dt, device=dev)
+    gsel = torch.zeros((N, n_groups), dtype=torch.bool, device=dev)
+    done = torch.zeros((N,), dtype=torch.bool, device=dev)
+    err = (Xt * Xt).sum(dim=1)
+    gamma = torch.zeros((N, A), dtype=dt, device=dev)
+    nsel = torch.zeros((N,), dtype=torch.int32, device=dev)
+    for t in range(T):
+        stop = done | gsel.all(dim=1)
+        if eps_mode:
+            stop = stop | (err <= eps * eps)
+        corr = r @ D
+        # selected groups lose 1e30 (the reference's masking)
+        S = (corr * corr) @ member_oh - 1e30 * gsel.to(dt)
+        gbest = _argmax_first(S).long()
+        midx = members[gbest]                                 # (N, gs)
+        mvalid = mmask[gbest].to(dt)
+        dnew = Dt[midx.long()] * mvalid[..., None]            # (N, gs, p)
+        W = Linv @ torch.einsum("nap,ngp->nag", Dsel, dnew)   # (N, A, gs)
+        Gnn = dnew @ dnew.transpose(1, 2) + eye * (1.0 - mvalid)[:, :, None]
+        Schur = Gnn - W.transpose(1, 2) @ W
+        scale = Schur.abs().amax(dim=(1, 2)) + 1e-3
+        if gs <= 8:
+            Lbinv1, ok1 = _chol_small_inv(Schur, gs, 1e-9)
+            Lbinv2, ok2 = _chol_small_inv(Schur, gs, 1e-2 * scale)
+            Lbinv = torch.where(ok1[:, None, None], Lbinv1, Lbinv2)
+            bad = ~ok1 & ~ok2
+        else:
+            # LAPACK for big blocks; info != 0 marks a failed factor
+            Lb, info = torch.linalg.cholesky_ex(Schur + 1e-9 * eye)
+            retry = info != 0
+            Lb2, info2 = torch.linalg.cholesky_ex(
+                Schur + (1e-2 * scale)[:, None, None] * eye)
+            Lb = torch.where(retry[:, None, None], Lb2, Lb)
+            bad = retry & (info2 != 0)
+            Lb = torch.where(bad[:, None, None], eye, Lb)
+            Lbinv = torch.linalg.solve_triangular(
+                Lb, eye.expand_as(Lb), upper=False)
+        Lbinv = torch.where(bad[:, None, None], eye, Lbinv)
+        sl = slice(t * gs, (t + 1) * gs)
+        newrows = -(Lbinv @ W.transpose(1, 2) @ Linv)         # (N, gs, A)
+        newrows[:, :, sl] = Lbinv
+        Linv_n = Linv.clone()
+        Linv_n[:, sl] = newrows
+        Dsel_n = Dsel.clone()
+        Dsel_n[:, sl] = dnew
+        idx_n = idx.clone()
+        idx_n[:, sl] = midx
+        smask_n = smask.clone()
+        smask_n[:, sl] = mvalid
+        a0sel_n = a0sel.clone()
+        a0sel_n[:, sl] = torch.einsum("ngp,np->ng", dnew, Xt)
+        gamma_n, r_n = _refined_solve(Linv_n, a0sel_n, Dsel_n, Xt)
+        gsel_n = gsel.clone()
+        gsel_n[rows, gbest] = True
+        frozen = stop | bad
+        r = _freeze(frozen, r_n, r)
+        Dsel = _freeze(frozen, Dsel_n, Dsel)
+        Linv = _freeze(frozen, Linv_n, Linv)
+        idx = _freeze(frozen, idx_n, idx)
+        smask = _freeze(frozen, smask_n, smask)
+        a0sel = _freeze(frozen, a0sel_n, a0sel)
+        gsel = _freeze(frozen, gsel_n, gsel)
+        err = _freeze(frozen, (r_n * r_n).sum(dim=1), err)
+        gamma = _freeze(frozen, gamma_n, gamma)
+        nsel = torch.where(frozen, nsel, nsel + 1)
+        done = frozen
+    return GreedyResult(idx, gamma * smask, err, nsel * gs)
+
+
+def _group_fused_supported(D, X, gs: int, T: int) -> bool:
+    """The fused group kernel takes the call: CUDA tensors, float32, and a
+    shape inside its envelope (the reference's gate, with "on a TPU"
+    read as "on the GPU")."""
+    from lyssandra_tpu_torch.ops.cuda_group import kernel_supports
+
+    return (
+        X.is_cuda and D.is_cuda
+        and D.dtype == torch.float32 and X.dtype == torch.float32
+        and kernel_supports(D.shape[0], gs, T)
+    )
+
+
+def _scatter_dense(res: GreedyResult, K: int) -> torch.Tensor:
+    """Dense Gamma (K, N) as a plain scatter-add of gamma at idx."""
+    C = torch.zeros((res.idx.shape[0], K), dtype=res.gamma.dtype,
+                    device=res.gamma.device)
+    C.scatter_add_(1, res.idx.long(), res.gamma)
+    return C.T
+
+
+def group_omp(D, X, groups, T: int, eps: float | None = None, *,
+              dense: bool = True, fused: bool = True, device=None):
+    """Group OMP (oracle.group_omp): select argmax_g ||D_g^T r||, least
+    squares over the union of the selected groups' atoms.
+
+    groups: (K,) int group ids in [0, n_groups) (numpy, list or tensor).
+    Returns dense Gamma (K, N), or with ``dense=False`` a compact
+    GreedyResult whose T*gs slots hold the selected groups' atoms (gs =
+    the largest group; padded slots carry 0) and whose nsel counts atom
+    slots.  T is clamped to the number of groups.
+
+    In T mode on CUDA float32 tensors, when the kernel takes the shape,
+    the fused CUDA kernel (``ops/cuda_group.py``) runs all steps;
+    ``fused=False`` forces the batched scan, which also serves eps mode,
+    the CPU and other shapes.  The reference's ``precision``,
+    ``interpret`` and ``packed`` keywords choose between TPU variants of
+    one computation and have no counterpart here.
+    """
+    if device is None and isinstance(D, torch.Tensor):
+        device = D.device
+    D = _as_f32(D, device)
+    X = _as_f32(X, device)
+    from lyssandra_tpu_torch.ops.cuda_group import (
+        group_omp_fused, groups_numpy, slot_table,
+    )
+
+    members, mmask, n_groups, gs = slot_table(groups)
+    K = D.shape[1]
+    T_eff = min(T, n_groups)
+    if fused and eps is None and _group_fused_supported(D, X, gs, T_eff):
+        idx, gamma, err, nsel, _ = group_omp_fused(D, X, groups, T_eff)
+        res = GreedyResult(idx, gamma, err, nsel * gs)
+    else:
+        member_oh = torch.nn.functional.one_hot(
+            torch.as_tensor(groups_numpy(groups), device=D.device),
+            n_groups).to(D.dtype)
+        res = _group_omp_impl(
+            D, X, torch.as_tensor(members, device=D.device),
+            torch.as_tensor(mmask, device=D.device), member_oh,
+            0.0 if eps is None else float(eps), n_groups=n_groups, gs=gs,
+            T=T_eff, eps_mode=eps is not None)
+    return _scatter_dense(res, K) if dense else res
+
+
+def threshold_code(D, X, lam: float, kind: str = "soft", *, device=None):
+    """One-shot thresholding coder: Gamma = shrink(D^T X, lam), soft or
+    hard (oracle parity)."""
+    if device is None and isinstance(D, torch.Tensor):
+        device = D.device
+    D = _as_f32(D, device)
+    X = _as_f32(X, device)
+    A = D.T @ X
+    if kind == "soft":
+        return torch.sign(A) * (A.abs() - lam).clamp_min(0.0)
+    return A * (A.abs() > lam)

@@ -2,7 +2,7 @@
 
 The "weights" of this system are a dictionary D and a config.  A
 dictionary learned by ``lyssandra_tpu`` (for example by its K-SVD), saved
-or handed over as a NumPy array, denoises identically here.
+or handed over as a NumPy array, denoises and codes identically here.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 from lyssandra_tpu_torch.apps.denoise import Denoiser
 from lyssandra_tpu_torch.config import DenoiseConfig
+from lyssandra_tpu_torch.solvers.encoder import SparseEncoder
 
 
 def dictionary_from_numpy(D, device=None) -> torch.Tensor:
@@ -42,3 +43,22 @@ def denoiser_from_reference(D_np, cfg_dict: dict, device=None) -> Denoiser:
     reference ``DenoiseConfig`` (``dataclasses.asdict`` of it)."""
     return Denoiser(dictionary_from_numpy(D_np, device),
                     DenoiseConfig(**cfg_dict), device=device)
+
+
+def encoder_from_reference(algorithm: str, params: dict | None = None, *,
+                           block: int | None = None,
+                           check_atoms: bool = True,
+                           device=None) -> SparseEncoder:
+    """A SparseEncoder from a reference encoder's settings: its algorithm
+    name, its params (array values such as ``groups`` become NumPy arrays,
+    NumPy scalars become Python numbers) and its block size."""
+    def plain(v):
+        if isinstance(v, np.generic):
+            return v.item()
+        if hasattr(v, "__array__") and np.ndim(v) > 0:
+            return np.asarray(v)
+        return v
+
+    return SparseEncoder(
+        algorithm, {k: plain(v) for k, v in (params or {}).items()},
+        block=block, check_atoms=check_atoms, device=device)

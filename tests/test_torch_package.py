@@ -75,8 +75,10 @@ def test_launch_counters_stay_zero_on_cpu(rng):
                cfg=lt.DenoiseConfig(sigma=20.0, T_max=12))
     D = lt.dct_dictionary(4, 36)
     lt.batch_omp(D, torch.randn(16, 40), 3)
+    lt.group_omp(D, torch.randn(16, 40), np.repeat(np.arange(9), 4), 2)
     assert lt.launch_counts() == {
-        "omp_fused_t": 0, "omp_fused_eps": 0, "fused_patches": 0}
+        "omp_fused_t": 0, "omp_fused_eps": 0, "fused_patches": 0,
+        "group_omp_fused": 0}
 
 
 def test_dictionary_from_numpy_checks(rng):

@@ -18,8 +18,9 @@ PyTorch version in the same module.  A wrapper runs the plain version only
 for tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
 
 Ported so far: the patch ops, the DCT dictionary, the greedy solvers
-(OMP, Batch-OMP, group OMP, thresholding), the ``SparseEncoder`` front end
-with those routes, and the error-constrained denoiser.
+(OMP, Batch-OMP, group OMP, thresholding), feature-sign lasso coding and
+FISTA, the ``SparseEncoder`` front end with those routes, and the
+error-constrained denoiser.
 """
 
 import torch
@@ -39,7 +40,10 @@ from lyssandra_tpu_torch.ops import (  # noqa: E402
 from lyssandra_tpu_torch.solvers import (  # noqa: E402
     SparseEncoder,
     batch_omp,
+    feature_sign,
+    fista,
     group_omp,
+    lasso,
     omp,
     sparse_encoder,
     threshold_code,
@@ -54,7 +58,10 @@ __all__ = [
     "dct_dictionary",
     "denoise",
     "extract_patches",
+    "feature_sign",
+    "fista",
     "group_omp",
+    "lasso",
     "launch_counts",
     "omp",
     "psnr",

@@ -42,6 +42,10 @@ _SIGNATURES = {
     # img, H, W, p, do_dc, do_norm, eps, Wm, off, X, means, scales, stream
     "lyssa_fused_patches": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P,
                             _P],
+    # X, D, p, K, N, tun, n_refine, lam, thr, thr_done, idx, mask, theta,
+    # gact, gr, done, stream
+    "lyssa_fs_cold": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P,
+                      _P, _P, _P],
 }
 
 

@@ -1,3 +1,4 @@
+from lyssandra_tpu_torch.ops.cuda_fs import fs_cold_fused
 from lyssandra_tpu_torch.ops.cuda_group import group_omp_fused
 from lyssandra_tpu_torch.ops.cuda_omp import omp_fused
 from lyssandra_tpu_torch.ops.cuda_patches import (
@@ -27,6 +28,7 @@ def launch_counts() -> dict[str, int]:
         "omp_fused_eps": omp_fused.launches_eps,
         "fused_patches": fused_patch_pipeline_p1.launches,
         "group_omp_fused": group_omp_fused.launches,
+        "fs_cold": fs_cold_fused.launches,
     }
 
 
@@ -35,3 +37,4 @@ def reset_launch_counts() -> None:
     omp_fused.launches_eps = 0
     fused_patch_pipeline_p1.launches = 0
     group_omp_fused.launches = 0
+    fs_cold_fused.launches = 0

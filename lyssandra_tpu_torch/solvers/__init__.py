@@ -5,7 +5,14 @@ from lyssandra_tpu_torch.solvers.greedy import (
     omp,
     threshold_code,
 )
+from lyssandra_tpu_torch.solvers.lasso import (
+    FeatureSignResult,
+    feature_sign,
+    fista,
+    lasso,
+)
 from lyssandra_tpu_torch.solvers.encoder import SparseEncoder, sparse_encoder
 
-__all__ = ["GreedyResult", "SparseEncoder", "batch_omp", "group_omp", "omp",
+__all__ = ["FeatureSignResult", "GreedyResult", "SparseEncoder", "batch_omp",
+           "feature_sign", "fista", "group_omp", "lasso", "omp",
            "sparse_encoder", "threshold_code"]

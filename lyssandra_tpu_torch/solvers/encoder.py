@@ -4,9 +4,10 @@
 Validates atom norms, chunks the signal matrix into fixed-size blocks
 (the last one zero-padded) and codes the blocks one after another on one
 device.  Routes ported so far: ``bomp``/``batch_omp``, ``omp``,
-``group_omp`` and the thresholding coders.  The reference's other routes
-raise ``NotImplementedError`` naming the ROADMAP item that ports them, and
-so does a data ``mesh`` (ROADMAP A13).
+``group_omp``, the thresholding coders, ``lasso``/``feature_sign``/``fss``
+(feature-sign search) and ``fista``.  The reference's other routes raise
+``NotImplementedError`` naming the ROADMAP item that ports them, and so
+does a data ``mesh`` (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -17,14 +18,14 @@ from typing import Any
 import torch
 
 from lyssandra_tpu_torch.solvers import greedy
+from lyssandra_tpu_torch.solvers.lasso import feature_sign, fista
 
 _THRESHOLDING = ("thresholding", "soft_thresholding", "hard_thresholding")
 _CONVEX = ("lasso", "feature_sign", "fss", "lars", "lasso_lars")
 # routes of the reference not ported yet -> the ROADMAP item that ports them
 _NOT_PORTED = {
     "nn_omp": "A10",
-    "lasso": "A8", "feature_sign": "A8", "fss": "A8",
-    "lars": "A8", "lasso_lars": "A8", "fista": "A8",
+    "lars": "A8", "lasso_lars": "A8",
     "llc": "A10",
 }
 
@@ -33,7 +34,8 @@ class SparseEncoder:
     """Encode signal columns into sparse codes over a fixed dictionary.
 
     algorithm: 'omp' | 'bomp' (batch_omp) | 'group_omp' | 'thresholding'
-               ('soft_thresholding', 'hard_thresholding')
+               ('soft_thresholding', 'hard_thresholding') | 'lasso'
+               ('feature_sign', 'fss': feature-sign search) | 'fista'
     params: algorithm kwargs (T, eps, lam, groups, kind, ...).
     block:  signals per solver call; longer inputs are coded in blocks of
             this size, the last one zero-padded.  Default 16384 for greedy
@@ -79,6 +81,10 @@ class SparseEncoder:
                 "kind", "soft")
             return lambda D, X, **kw: greedy.threshold_code(
                 D, X, self.params["lam"], kind)
+        if alg in ("lasso", "feature_sign", "fss"):
+            return feature_sign
+        if alg == "fista":
+            return fista
         if alg in _NOT_PORTED:
             raise NotImplementedError(
                 f"SparseEncoder route {alg!r} is not ported yet (ROADMAP "

@@ -166,16 +166,27 @@ def _batch_omp_impl(G, Dt, A0, xnormsq, eps, *, T, eps_mode):
     return GreedyResult(idx, torch.where(valid, gamma, 0.0), err, nsel)
 
 
-def _omp_impl(D, X, eps, *, T, eps_mode):
+def _check_corr_dtype(corr_dtype: str) -> None:
+    if corr_dtype not in ("f32", "bf16"):
+        raise ValueError(f"corr_dtype must be 'f32' or 'bf16': {corr_dtype!r}")
+
+
+def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32"):
     """Explicit-residual OMP (oracle.omp): correlations from
     r = x - D_I gamma.  In eps mode a lane is done once its residual
     reaches the target, and the whole loop ends once every lane is done
-    (one host sync per step)."""
+    (one host sync per step).
+
+    corr_dtype='bf16': the selection product alone takes bf16-rounded
+    operands, accumulated in float32 (a product of two bf16 values is
+    exact in float32); the factor, solves and residuals stay float32."""
+    _check_corr_dtype(corr_dtype)
     p, K = D.shape
     N = X.shape[1]
     dev, dt = D.device, D.dtype
     Xt = X.T                                   # (N, p)
     Dt = D.T
+    D_sel = D.bfloat16().float() if corr_dtype == "bf16" else D
     xnormsq = (Xt * Xt).sum(dim=1)
     r = Xt
     Dsel = torch.zeros((N, T, p), dtype=dt, device=dev)
@@ -189,7 +200,8 @@ def _omp_impl(D, X, eps, *, T, eps_mode):
     for t in range(T):
         if eps_mode and bool(done.all()):
             break
-        k = _argmax_abs(r @ D)
+        r_sel = r.bfloat16().float() if corr_dtype == "bf16" else r
+        k = _argmax_abs(r_sel @ D_sel)
         dk = Dt[k.long()]                                    # (N, p)
         g = torch.einsum("ntp,np->nt", Dsel, dk)
         Linv_n, nu = _append_cholesky_inv(Linv, g, t)
@@ -217,14 +229,17 @@ def _omp_impl(D, X, eps, *, T, eps_mode):
     return GreedyResult(idx, torch.where(valid, gamma, 0.0), err, nsel)
 
 
-def _fused_supported(D: torch.Tensor, X: torch.Tensor, T: int) -> bool:
-    """The fused kernel takes the call: CUDA tensors, float32, and a shape
-    inside the kernel's envelope."""
+def _fused_supported(D: torch.Tensor, X: torch.Tensor, T: int,
+                     corr_dtype: str = "f32") -> bool:
+    """The fused kernel takes the call: CUDA tensors, float32, float32
+    selection products (the kernel has no bf16 selection, as the
+    reference's has none) and a shape inside the kernel's envelope."""
     from lyssandra_tpu_torch.ops.cuda_omp import kernel_supports
 
     return (
         X.is_cuda and D.is_cuda
         and D.dtype == torch.float32 and X.dtype == torch.float32
+        and corr_dtype == "f32"
         and kernel_supports(D.shape[0], T)
     )
 
@@ -243,7 +258,8 @@ def _as_f32(A, device) -> torch.Tensor:
 
 
 def batch_omp(D, X, T: int, eps: float | None = None, *,
-              dense: bool = True, refresh: str = "auto", device=None):
+              dense: bool = True, refresh: str = "auto",
+              corr_dtype: str = "f32", device=None):
     """Batch-OMP (oracle.batch_omp semantics).
 
     D: (p, K) unit-norm dictionary.  X: (p, N) signals.  T-sparse mode
@@ -257,6 +273,9 @@ def batch_omp(D, X, T: int, eps: float | None = None, *,
       'residual' — alpha = (x - D_I gamma)^T D;
       'auto'     — the fused kernel where supported, else by flop count
                    (residual iff 2p < K).
+    corr_dtype: 'f32', or 'bf16' for bf16 operands of the residual form's
+    selection product (see ``_omp_impl``; the Gram form ignores it, as the
+    reference's does).
     """
     if device is None and isinstance(D, torch.Tensor):
         device = D.device
@@ -265,7 +284,8 @@ def batch_omp(D, X, T: int, eps: float | None = None, *,
     p, K = D.shape
     if refresh not in ("auto", "gram", "residual"):
         raise ValueError(f"refresh must be auto, gram or residual: {refresh}")
-    if refresh != "gram" and _fused_supported(D, X, T):
+    _check_corr_dtype(corr_dtype)
+    if refresh != "gram" and _fused_supported(D, X, T, corr_dtype):
         return _omp_fused_call(
             D, X, T=T, eps=0.0 if eps is None else float(eps),
             eps_mode=eps is not None, dense=dense)
@@ -273,7 +293,7 @@ def batch_omp(D, X, T: int, eps: float | None = None, *,
         refresh = "residual" if 2 * p < K else "gram"
     if refresh == "residual":
         res = _omp_impl(D, X, 0.0 if eps is None else float(eps), T=T,
-                        eps_mode=eps is not None)
+                        eps_mode=eps is not None, corr_dtype=corr_dtype)
     else:
         res = _batch_omp_impl(
             D.T @ D, D.T, X.T @ D, (X * X).sum(dim=0),
@@ -283,19 +303,20 @@ def batch_omp(D, X, T: int, eps: float | None = None, *,
 
 
 def omp(D, X, T: int, eps: float | None = None, *, dense: bool = True,
-        fused: bool = True, device=None):
+        corr_dtype: str = "f32", fused: bool = True, device=None):
     """Orthogonal Matching Pursuit with explicit residual (oracle.omp).
-    ``fused=False`` forces the batched form on any device."""
+    ``fused=False`` forces the batched form on any device; ``corr_dtype``
+    as in ``batch_omp``."""
     if device is None and isinstance(D, torch.Tensor):
         device = D.device
     D = _as_f32(D, device)
     X = _as_f32(X, device)
-    if fused and _fused_supported(D, X, T):
+    if fused and _fused_supported(D, X, T, corr_dtype):
         return _omp_fused_call(
             D, X, T=T, eps=0.0 if eps is None else float(eps),
             eps_mode=eps is not None, dense=dense)
     res = _omp_impl(D, X, 0.0 if eps is None else float(eps), T=T,
-                    eps_mode=eps is not None)
+                    eps_mode=eps is not None, corr_dtype=corr_dtype)
     return res.dense(D.shape[1]) if dense else res
 
 

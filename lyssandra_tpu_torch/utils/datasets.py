@@ -1,7 +1,8 @@
-"""Synthetic standard images, copied from ``lyssandra_tpu.utils.datasets``
-(a copy and not an import: importing the reference package pulls in
-``jax``).  ``tests/test_torch_package.py`` checks that the copy gives the
-reference's pixels."""
+"""Synthetic standard images and the patch sampler, copied from
+``lyssandra_tpu.utils.datasets`` (a copy and not an import: importing the
+reference package pulls in ``jax``).  ``tests/test_torch_package.py`` and
+``tests/test_torch_lasso.py`` check that the copies give the reference's
+pixels and patches."""
 
 from __future__ import annotations
 
@@ -70,3 +71,55 @@ def synthetic_image(
     img -= img.min()
     img /= max(img.max(), 1e-12)
     return 255.0 * img
+
+
+def synthetic_color_image(
+    kind: str = "texture", size: int = 256, seed: int = 0,
+) -> np.ndarray:
+    """Deterministic synthetic RGB images in [0, 255], shape (H, W, 3):
+    the channels share the grey image's luminance structure plus smooth
+    chroma modulations."""
+    rng = np.random.default_rng(seed ^ 0x5EED)
+    luma = synthetic_image(kind, size=size, seed=seed) / 255.0
+    t = np.linspace(0, 1, size)
+    xx, yy = np.meshgrid(t, t, indexing="ij")
+    chans = []
+    for c in range(3):
+        chroma = np.zeros((size, size))
+        for _ in range(3):
+            cx, cy = rng.uniform(0, 1, 2)
+            s = rng.uniform(0.25, 0.5)
+            a = rng.uniform(-0.12, 0.12)
+            chroma += a * np.exp(
+                -(((xx - cx) ** 2 + (yy - cy) ** 2) / s**2)
+            )
+        gain = rng.uniform(0.85, 1.0)
+        chans.append(np.clip(gain * luma + chroma, 0.0, 1.0))
+    return 255.0 * np.stack(chans, axis=-1)
+
+
+def patch_dataset(
+    images, p: int = 8, n_patches: int = 50000, seed: int = 0,
+    remove_dc: bool = True,
+) -> np.ndarray:
+    """Sample random p x p patches from a list of images -> (p*p, N).
+
+    Color images (H, W, C) yield (C*p*p, N) columns with channels stacked
+    as leading row blocks (the layout of ``ops.patches.extract_patches``).
+    """
+    rng = np.random.default_rng(seed)
+    per = n_patches // len(images) + 1
+    cols = []
+    for img in images:
+        H, W = img.shape[:2]
+        ii = rng.integers(0, H - p + 1, per)
+        jj = rng.integers(0, W - p + 1, per)
+        for i, j in zip(ii, jj):
+            patch = img[i : i + p, j : j + p]
+            if patch.ndim == 3:
+                patch = np.moveaxis(patch, -1, 0)   # channel-major blocks
+            cols.append(patch.reshape(-1))
+    X = np.stack(cols[:n_patches], axis=1).astype(np.float64)
+    if remove_dc:
+        X -= X.mean(axis=0, keepdims=True)
+    return X

@@ -193,9 +193,48 @@ def test_kernel_envelope():
 def test_kernel_library_named_by_source_hash():
     # built only on first use, never at import: nothing here needs nvcc
     names = sorted(p.name for p in _build.sources())
-    assert names == ["errors.cu", "fused_patches.cu", "group_omp.cu",
-                     "omp_fused.cu"]
+    assert names == ["errors.cu", "fs_cold.cu", "fused_patches.cu",
+                     "group_omp.cu", "omp_fused.cu"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()
     assert path.name.startswith("liblyssa_kernels_")
+
+
+@pytest.mark.parametrize("route", ["omp", "batch_omp", "encoder"])
+def test_corr_dtype_bf16_matches_jax(rng, route):
+    """corr_dtype='bf16' rounds the selection product's operands to bf16
+    and accumulates in float32, as the reference does.  Held by
+    tests/test_greedy.py's rule: on a well-posed problem the supports agree
+    with the reference's bf16 run on >= 99% of lanes, the codes within
+    5e-4 there."""
+    D, X = _f32(rng, p=64, K=256, N=512, T=8)
+    kw = {"corr_dtype": "bf16"}
+    if route == "encoder":
+        from lyssandra_tpu_torch import SparseEncoder
+        import lyssandra_tpu as jlt
+
+        got = SparseEncoder("bomp", {"T": 8, **kw}).encode(X, D).numpy()
+        want = np.asarray(jlt.SparseEncoder("bomp", {"T": 8, **kw}).encode(
+            X, D))
+    else:
+        got = getattr(greedy, route)(_t(D), _t(X), 8, **kw).numpy()
+        want = np.asarray(getattr(jgreedy, route)(jnp.asarray(D),
+                                                  jnp.asarray(X), 8, **kw))
+    same = ((np.abs(got) > 1e-12) == (np.abs(want) > 1e-12)).all(axis=0)
+    assert same.mean() >= 0.99, same.mean()
+    np.testing.assert_allclose(got[:, same], want[:, same], atol=5e-4)
+    # the bf16 selection really differs from the float32 one somewhere in
+    # the correlations, yet picks the float32 supports on this problem
+    hi = greedy.batch_omp(_t(D), _t(X), 8).numpy()
+    assert ((np.abs(hi) > 1e-12) == (np.abs(got) > 1e-12)).all(
+        axis=0).mean() >= 0.99
+
+
+@pytest.mark.parametrize("route", ["omp", "batch_omp"])
+def test_corr_dtype_rejects_unknown(rng, route):
+    D, X = _f32(rng, p=16, K=32, N=8, T=2)
+    with pytest.raises(ValueError, match="corr_dtype"):
+        getattr(greedy, route)(_t(D), _t(X), 2, corr_dtype="fp16")
+    # the fused kernel's gate declines bf16 selection products
+    assert not greedy._fused_supported(_t(D), _t(X), 2, "bf16")

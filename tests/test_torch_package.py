@@ -29,7 +29,9 @@ PKG = os.path.join(ROOT, "lyssandra_tpu_torch")
 
 def test_import_leaves_jax_out():
     code = ("import sys, lyssandra_tpu_torch, lyssandra_tpu_torch.utils."
-            "interop; bad = [m for m in sys.modules if m.split('.')[0] in "
+            "interop, lyssandra_tpu_torch.utils.datasets, "
+            "lyssandra_tpu_torch.solvers.lasso, lyssandra_tpu_torch.ops."
+            "cuda_fs; bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lyssandra_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -76,9 +78,12 @@ def test_launch_counters_stay_zero_on_cpu(rng):
     D = lt.dct_dictionary(4, 36)
     lt.batch_omp(D, torch.randn(16, 40), 3)
     lt.group_omp(D, torch.randn(16, 40), np.repeat(np.arange(9), 4), 2)
+    lt.SparseEncoder("lasso", {"lam": 0.2, "cold_unroll": 3,
+                               "cold_backend": "pallas"}).encode(
+        torch.randn(16, 40), D)
     assert lt.launch_counts() == {
         "omp_fused_t": 0, "omp_fused_eps": 0, "fused_patches": 0,
-        "group_omp_fused": 0}
+        "group_omp_fused": 0, "fs_cold": 0}
 
 
 def test_dictionary_from_numpy_checks(rng):

@@ -38,7 +38,14 @@ Phases, in order; any failure raises and exits non-zero:
      same share of lanes done at the handoff (within 0.005); then its
      envelope (p=21, K=100; a coherent pair; lam=1e3, where every lane is
      done on entry and the state is zero; a Tun beyond the kernel, which
-     must raise) and its time at N=2048 and N=16384;
+     must raise) and its time at N=2048 and N=16384, and the steps its
+     lanes run (for its bound);
+  5e. K7 (fused selection) against its plain version at p=64, K=1024 on
+     the 262,144 Gaussian lanes, f32 and bf16: picks equal on >= 99.9% of
+     lanes; exact ties (atom 7 = atom 3) give index 3 on every lane; its
+     envelope (p=5 with K=100, p=512, N=4099 and N=333, f32 and bf16) and
+     p=513, which must raise; the times of the kernel, its plain version
+     and the library pair argmax(|r @ D|);
   6. the main paths, each counted on its own: (a) Batch-OMP (p=64, K=1024,
      T=8, N=262144) through lyssandra_tpu_torch.batch_omp and the
      sigma=25 denoise of the 512x512 image through Denoiser; (b)
@@ -50,7 +57,19 @@ Phases, in order; any failure raises and exits non-zero:
      8 blocks of 2048 = 8 K6 launches, per-lane objectives within rtol
      1e-4, atol 1e-5 (tests/test_lasso.py's) of cold_backend="xla", the
      plain path, on >= 99.9% of lanes and within rtol 1e-3 on all, and
-     the KKT conditions of tests/test_lasso.py on every lane;
+     the KKT conditions of tests/test_lasso.py on every lane; (e)
+     greedy._omp_impl(fused_select=True) on the 262,144 Batch-OMP signals
+     (8 K7 launches), idx agreeing with fused_select=False on >= 99.9% of
+     lanes and exactly (gamma within 1e-4) on phase 3's well-posed
+     problem, then corr_dtype="bf16" and eps mode on the denoise patches
+     (at most T launches); (f) SparseEncoder("nn_omp", T=8) on the solver
+     sweep's 131,072 signals made non-negative: codes >= 0, and the scan
+     and unrolled forms agree on one block by tests/test_greedy.py's rule;
+     (g) inpaint of the 512x512 image with 25% of the pixels missing: the
+     error on the missing pixels below a quarter of the corrupted image's,
+     the known pixels kept within 1e-4; (h) SparseEncoder("llc", knn=5)
+     on the same signals: codes sum to 1 within 1e-5, the support is the 5
+     largest d.x, 1,024 lanes within 1e-4 of a float64 solve;
      every kernel must have launched on one of the paths; the denoised
      image must beat the noisy one by > 3 dB and agree within 0.05 dB with
      a path built from the plain versions;
@@ -59,8 +78,12 @@ Phases, in order; any failure raises and exits non-zero:
      the bomp encoder (blocks of 16384) against one batch_omp call, and
      the lasso encoder's patches/s on the kernel path, on
      cold_backend="xla" and on cold_unroll=0 (median of 3), with the host
-     syncs of one call;
-then one JSON line of per-kernel results and, last, the result line.
+     syncs of one call; _omp_impl with fused_select True and False (f32
+     and bf16), the nn_omp and llc encoders' patches/s and the inpaint
+     seconds;
+then one JSON line of per-kernel results (with each kernel's bound: the
+larger of its bytes over 3.35 TB/s and its operations over the peak rate
+of their type, counted from this run's data) and, last, the result line.
 Nothing runs on the CPU when there is no GPU.
 """
 
@@ -82,6 +105,9 @@ SIGMA, IMG_SIZE = 25.0, 512
 REPS = 5
 P4, K4, LAM, TUN = 192, 1024, 0.15, 28   # config 4: 8x8x3 patches, K=1024
 N4 = 16384                               # config 4's patches, 8 blocks
+N_SWEEP = 131072                         # the solver sweep's signals
+# published H100 SXM peaks (NVIDIA's data sheet), for the bounds
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
 
 def check(ok, what):
@@ -150,6 +176,41 @@ def config4_problem():
     return D, X
 
 
+def sweep_problem():
+    """D and the 131,072 unit-norm Gaussian signals of the solver sweep
+    (benchmarks/solver_sweep.py:19-37: same shapes, seed and draw order;
+    its D is the Batch-OMP benchmark's)."""
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((P, K))
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    X = rng.standard_normal((P, N_SWEEP))
+    X /= np.linalg.norm(X, axis=0, keepdims=True)
+    return D.astype(np.float32), X.astype(np.float32)
+
+
+def bound_ms(nbytes, flops, peak_flops):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate for their type.
+    Returns (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def omp_flops(torch, p, K, nsel):
+    """Operations of the fused OMP over lanes that ran nsel[n] steps: per
+    step t the correlation (2pK), d_k.x (2p), the Gram row (2pt), the
+    factor row (2t^2), the two triangular solves (2(t+1)^2), the residual
+    (2p(t+1)) and its norm (2p); ||x||^2 (2p) once per lane."""
+    counts = torch.bincount(nsel.long().flatten()).tolist()
+    total = 0
+    for m, c in enumerate(counts):
+        total += c * (2 * p + sum(
+            2 * p * K + 2 * p + 2 * p * t + 2 * t * t + 2 * (t + 1) ** 2
+            + 2 * p * (t + 1) + 2 * p for t in range(m)))
+    return total
+
+
 def sparse_problem(rng, p, K, N, s):
     """Unit-norm Gaussian dictionary and unit-norm signals that are noisy
     s-sparse combinations of its atoms (a well-posed lasso)."""
@@ -191,6 +252,7 @@ def main():
     sys.path.insert(0, ROOT)
     import lyssandra_tpu_torch as lt
     from lyssandra_tpu_torch import _build
+    from lyssandra_tpu_torch.apps import inpaint
     from lyssandra_tpu_torch.apps.denoise import Denoiser
     from lyssandra_tpu_torch.ops.cuda_fs import (
         fs_cold_fused, fs_cold_fused_reference,
@@ -203,6 +265,9 @@ def main():
     )
     from lyssandra_tpu_torch.ops.cuda_patches import (
         fused_patch_pipeline_p1, fused_patch_pipeline_reference,
+    )
+    from lyssandra_tpu_torch.ops.cuda_select import (
+        select_abs_argmax, select_abs_argmax_reference,
     )
     from lyssandra_tpu_torch.ops.patches import weighted_reconstruct
     from lyssandra_tpu_torch.solvers.greedy import GreedyResult, _omp_impl
@@ -243,6 +308,7 @@ def main():
     k1_err = float((got[1] - want[1]).abs().max())
     check(k1_err <= 1e-4, f"K1 gamma, well-posed: {k1_err}")
     print(f"K1 well-posed N=32768: idx, nsel equal; max |dgamma| {k1_err:.3g}")
+    D3, X3 = D, X            # the well-posed problem, again in path (e)
 
     # the freeze rule: atoms 0 and K/2 are both e_0 and lanes 0-7 are 2 e_0,
     # so step 1 leaves r = 0 exactly and step 2 re-picks atom 0 and freezes
@@ -267,6 +333,9 @@ def main():
     agree = float((got[0] == want[0]).all(dim=1).float().mean())
     check(agree >= 0.999, f"K1 Gaussian idx agreement {agree}")
     print(f"K1 Gaussian N={Xb.shape[1]}: idx agree on {agree:.6f} of lanes")
+    NB = Xb.shape[1]
+    k1_bound = bound_ms(4 * (P * NB + P * K + 2 * NB * T + 2 * NB),
+                        omp_flops(torch, P, K, got[3]), PEAK_F32)
     k1_ms = cuda_ms(torch, lambda: omp_fused(Db, Xb, T=T))
     k1_plain_ms = cuda_ms(torch, lambda: omp_fused_reference(Db, Xb, T=T))
     del got, want
@@ -289,6 +358,9 @@ def main():
     print(f"K2 N={Xc.shape[1]}: nsel agree on {agree:.6f} of lanes, mean "
           f"nsel {float(got[3].float().mean()):.3f}; max |dgamma| on "
           f"agreeing lanes {k2_err:.3g}")
+    NP = Xc.shape[1]
+    k2_bound = bound_ms(4 * (P * NP + P * 256 + 2 * NP * 10 + 2 * NP),
+                        omp_flops(torch, P, 256, got[3]), PEAK_F32)
     k2_ms = cuda_ms(torch, lambda: omp_fused(
         Dd, Xc, T=10, eps=eps, eps_mode=True))
     k2_plain_ms = cuda_ms(torch, lambda: omp_fused_reference(
@@ -312,6 +384,10 @@ def main():
         check(max(errs) <= 1e-4, f"K3 {sorted(kw)}: {errs}")
         k3_err = max(k3_err, *errs)
         print(f"K3 {sorted(kw)}: max |d| X, means, scales = {errs}")
+    # image in; patches, means and scales out; a sum and a subtraction
+    # per patch element
+    k3_bound = bound_ms(4 * (IMG_SIZE * IMG_SIZE + (64 + 2) * NP),
+                        2 * 64 * NP, PEAK_F32)
     k3_ms = cuda_ms(torch, lambda: fused_patch_pipeline_p1(noisy, 8))
     k3_plain_ms = cuda_ms(
         torch, lambda: fused_patch_pipeline_reference(noisy, 8))
@@ -390,8 +466,16 @@ def main():
     _, k4_err = group_case(Dg, Xg, groups, T_GROUP,
                            "K4 well-posed p=64 K=1024 gs=4 T=4 N=32768")
     Xk4 = Xb[:, :32768].contiguous()
-    group_case(Db, Xk4, groups, T_GROUP, "K4 Gaussian N=32768",
-               agree_min=0.999)
+    got, _ = group_case(Db, Xk4, groups, T_GROUP, "K4 Gaussian N=32768",
+                        agree_min=0.999)
+    # per lane and step: the correlation (2pK), the group scores (2K), the
+    # block's Gram rows and residual update (4 p gs (t+1))
+    k4_flops = sum(
+        c * sum(2 * P * K + 2 * K + 4 * P * GS * (t + 1) for t in range(m))
+        for m, c in enumerate(torch.bincount(got[3].long()).tolist()))
+    k4_bound = bound_ms(
+        4 * (P * 32768 + P * K + 32768 * (T_GROUP * GS + T_GROUP + 2)),
+        k4_flops, PEAK_F32)
     # the freeze rule: group 1 repeats group 0's atoms e_0..e_3 and lanes
     # 0-7 are 2 e_0, so step 1 leaves r = 0 and step 2's block is singular
     Dz = Db.clone()
@@ -522,6 +606,90 @@ def main():
     print(f"K6 p={P4} K={K4} Tun={TUN}: N=2048 kernel {k6_ms:.3f} ms, plain "
           f"{k6_plain_ms:.3f} ms; N={N4} kernel {k6_ms_all:.3f} ms, plain "
           f"{k6_plain_ms_all:.3f} ms")
+    # the steps the lanes ran at N=2048: a lane runs step t while it is not
+    # done after t steps, and the cold start at depth t is the first t
+    # steps of the run at depth TUN
+    n6 = Xb4.shape[1]
+    notdone = [int((2.0 * (Xb4.T @ Dc4).abs() > LAM + 1e-12).any(dim=1).sum())]
+    for t in range(1, TUN):
+        notdone.append(int((~fs_cold_fused(Dc4, Xb4, lam=LAM,
+                                           t_unroll=t)[5]).sum()))
+    # A0 and one gradient per step (2pK each) dominate the operations;
+    # outputs: idx, mask, theta, gact (13 bytes a slot), gr, done
+    k6_bound = bound_ms(4 * (P4 * n6 + P4 * K4 + n6 * K4) + 13 * n6 * TUN + n6,
+                        2 * P4 * K4 * (n6 + sum(notdone)), PEAK_F32)
+    print(f"K6 N=2048: {sum(notdone) / n6:.3f} steps per lane on average; "
+          f"bound {k6_bound[0]:.4f} ms ({k6_bound[1]})")
+
+    # --- 5e. K7 against its plain version, then its envelope
+    r7 = Xb.T.contiguous()               # the 262,144 Gaussian lanes (N, p)
+
+    def score(r, D_, k, bf16):
+        """|r_n . d_k| in float64 on the operands the mode rounds."""
+        if bf16:
+            r, D_ = r.bfloat16(), D_.bfloat16()
+        return (r.double() * D_.double().T[k.long()]).sum(dim=1).abs()
+
+    def select_case(r, D_, what, agree_min=0.999):
+        errs = []
+        for bf16 in (False, True):
+            got = select_abs_argmax(r, D_, bf16=bf16)
+            want = select_abs_argmax_reference(r, D_, bf16=bf16)
+            agree = float((got == want).float().mean())
+            gap = float((score(r, D_, got, bf16)
+                         - score(r, D_, want, bf16)).abs().max())
+            check(agree >= agree_min, f"{what} bf16={bf16}: picks agree on "
+                  f"{agree}")
+            print(f"{what} bf16={bf16}: picks agree on {agree:.6f} of lanes; "
+                  f"max |score gap| between the picks {gap:.3g}")
+            errs.append(gap)
+        return errs
+
+    k7_err, k7_err_bf16 = select_case(r7, Db, f"K7 Gaussian N={NB}")
+    k7_share = float((select_abs_argmax(r7, Db)
+                      != select_abs_argmax_reference(r7, Db)).float().mean())
+    # exact ties: atom 7 repeats atom 3 and every lane is near atom 3, so
+    # both tie at the maximum with bitwise-equal correlations
+    Dtie = Db.clone()
+    Dtie[:, 7] = Dtie[:, 3]
+    rtie = Dtie[:, 3][None, :] + dt((0.02 * np.random.default_rng(7)
+                                     .standard_normal((65536, P)))
+                                    .astype(np.float32))
+    for bf16 in (False, True):
+        got = select_abs_argmax(rtie, Dtie, bf16=bf16)
+        want = select_abs_argmax_reference(rtie, Dtie, bf16=bf16)
+        check(bool((got == 3).all()) and bool((want == 3).all()),
+              f"K7 exact ties bf16={bf16}: not the lower index everywhere")
+    print("K7 exact ties N=65536: index 3 on every lane, f32 and bf16")
+    rng = np.random.default_rng(8)
+    for p_, K_, N_ in ((5, 100, 1000), (512, 1024, 4099), (64, 1024, 333)):
+        D_ = rng.standard_normal((p_, K_))
+        D_ /= np.linalg.norm(D_, axis=0)
+        select_case(dt(rng.standard_normal((N_, p_)).astype(np.float32)),
+                    dt(D_.astype(np.float32)),
+                    f"envelope p={p_} K={K_} N={N_}")
+    try:
+        select_abs_argmax(torch.zeros((64, 513), device=dev),
+                          torch.zeros((513, 128), device=dev))
+        check(False, "K7 at p=513 did not raise")
+    except ValueError as e:
+        print(f"K7 p=513 raises: {e}")
+    k7_ms = cuda_ms(torch, lambda: select_abs_argmax(r7, Db))
+    k7_bf16_ms = cuda_ms(torch, lambda: select_abs_argmax(r7, Db, bf16=True))
+    k7_plain_ms = cuda_ms(torch, lambda: select_abs_argmax_reference(r7, Db))
+    k7_plain_bf16_ms = cuda_ms(torch, lambda: select_abs_argmax_reference(
+        r7, Db, bf16=True))
+    k7_lib_ms = cuda_ms(torch, lambda: torch.argmax(torch.abs(r7 @ Db),
+                                                    dim=1))
+    k7_bytes = 4 * (NB * P + P * K + NB)
+    k7_bound = bound_ms(k7_bytes, 2 * NB * P * K, PEAK_F32)
+    k7_bound_bf16 = bound_ms(k7_bytes, 2 * NB * P * K, PEAK_BF16)
+    print(f"K7 p={P} K={K} N={NB}: kernel {k7_ms:.3f} ms (bf16 "
+          f"{k7_bf16_ms:.3f}), plain {k7_plain_ms:.3f} ms (bf16 "
+          f"{k7_plain_bf16_ms:.3f}), library pair {k7_lib_ms:.3f} ms; bound "
+          f"{k7_bound[0]:.4f} ms ({k7_bound[1]}), bf16 "
+          f"{k7_bound_bf16[0]:.4f} ms ({k7_bound_bf16[1]})")
+    del Dtie, rtie
 
     # --- 6. the main paths, each counted on its own
     cfg = lt.DenoiseConfig(sigma=SIGMA)
@@ -614,9 +782,148 @@ def main():
           f"{float(act.sum(dim=0).double().mean()):.3f}")
     del G4x, Gd, grad
 
+    # path (e): the residual-form OMP with the fused selection, one K7
+    # launch per step
+    lt.reset_launch_counts()
+    res_e = _omp_impl(Db, Xb, 0.0, T=T, eps_mode=False, fused_select=True)
+    torch.cuda.synchronize()
+    launches_e = lt.launch_counts()
+    print(f"path (e) _omp_impl(fused_select=True) launches: {launches_e}")
+    check(launches_e["select_abs_argmax"] == T,
+          f"K7 launched {launches_e['select_abs_argmax']} times, not {T}")
+    ref_e = _omp_impl(Db, Xb, 0.0, T=T, eps_mode=False)
+    agree = float((res_e.idx == ref_e.idx).all(dim=1).float().mean())
+    check(agree >= 0.999, f"fused_select idx agreement {agree}")
+    print(f"fused_select N={NB}: idx agree with the unfused selection on "
+          f"{agree:.6f} of lanes")
+    n0 = lt.launch_counts()["select_abs_argmax"]
+    wp = _omp_impl(D3, X3, 0.0, T=T, eps_mode=False, fused_select=True)
+    wq = _omp_impl(D3, X3, 0.0, T=T, eps_mode=False)
+    check(torch.equal(wp.idx, wq.idx) and torch.equal(wp.nsel, wq.nsel),
+          "fused_select idx/nsel on the well-posed problem")
+    e_err = float((wp.gamma - wq.gamma).abs().max())
+    check(e_err <= 1e-4, f"fused_select gamma on the well-posed problem "
+          f"{e_err}")
+    res_eb = _omp_impl(Db, Xb, 0.0, T=T, eps_mode=False, corr_dtype="bf16",
+                       fused_select=True)
+    ref_eb = _omp_impl(Db, Xb, 0.0, T=T, eps_mode=False, corr_dtype="bf16")
+    agree_b = float((res_eb.idx == ref_eb.idx).all(dim=1).float().mean())
+    check(agree_b >= 0.999, f"fused_select bf16 idx agreement {agree_b}")
+    n1 = lt.launch_counts()["select_abs_argmax"]
+    res_ee = _omp_impl(Dd, Xc, eps, T=10, eps_mode=True, fused_select=True)
+    n_eps = lt.launch_counts()["select_abs_argmax"] - n1
+    ref_ee = _omp_impl(Dd, Xc, eps, T=10, eps_mode=True)
+    agree_ee = float((res_ee.nsel == ref_ee.nsel).float().mean())
+    check(1 <= n_eps <= 10 and agree_ee >= 0.999,
+          f"fused_select eps mode: {n_eps} launches, nsel agree {agree_ee}")
+    check(n1 - n0 == 2 * T, "fused_select launches, well-posed and bf16")
+    print(f"fused_select well-posed N=32768: idx, nsel equal, max |dgamma| "
+          f"{e_err:.3g}; bf16 idx agree on {agree_b:.6f} of lanes; eps mode "
+          f"on the denoise patches: {n_eps} launches, nsel agree on "
+          f"{agree_ee:.6f} of lanes")
+    del res_e, ref_e, res_eb, ref_eb, res_ee, ref_ee, wp, wq
+
+    # path (f): the nn_omp encoder on the solver sweep's signals
+    Ds, Xs = sweep_problem()
+    Ds, Xs = dt(Ds), dt(np.abs(Xs))
+    nn_enc = lt.SparseEncoder("nn_omp", {"T": T})
+    lt.reset_launch_counts()
+    nres = nn_enc.encode(Xs, Ds, dense=False)
+    torch.cuda.synchronize()
+    launches_f = lt.launch_counts()
+    print(f"path (f) SparseEncoder('nn_omp') launches: {launches_f}")
+    check(tuple(nres.idx.shape) == (N_SWEEP, T)
+          and bool(torch.isfinite(nres.gamma).all())
+          and bool((nres.gamma >= 0).all()), "nn_omp codes: shape, >= 0")
+    # the scan and unrolled forms on one block (tests/test_greedy.py's
+    # rule: nsel and idx equal where the residual stays above 1e-6)
+    blk = Xs[:, :nn_enc.block]
+    a = lt.nn_omp(Ds, blk, T, dense=False, unroll=False)
+    b = lt.nn_omp(Ds, blk, T, dense=False, unroll=True)
+    generic = a.err > 1e-6
+    check(torch.equal(a.nsel[generic], b.nsel[generic])
+          and torch.equal(a.idx[generic], b.idx[generic]),
+          "nn_omp scan and unrolled forms select differently")
+    nn_err = float((a.dense(K) - b.dense(K)).abs().max())
+    nn_derr = float((a.err - b.err).abs().max())
+    check(nn_err <= 2e-5 and nn_derr <= 2e-4,
+          f"nn_omp forms: codes {nn_err}, err {nn_derr}")
+    print(f"nn_omp N={N_SWEEP}: codes >= 0, mean nsel "
+          f"{float(nres.nsel.float().mean()):.3f}; scan and unrolled forms "
+          f"on {blk.shape[1]} lanes ({float(generic.float().mean()):.6f} "
+          f"with err > 1e-6): nsel, idx equal, max |dcode| {nn_err:.3g}, "
+          f"max |derr| {nn_derr:.3g}")
+    del a, b, nres
+
+    # path (g): inpainting of the 512^2 image with 25% of the pixels missing
+    mask = dt((np.random.default_rng(0).uniform(size=img.shape) > 0.25)
+              .astype(np.float32))
+    corrupted = img_d * mask
+    lt.reset_launch_counts()
+    filled = inpaint(corrupted, mask, Dd, T=8)
+    torch.cuda.synchronize()
+    launches_inp = lt.launch_counts()
+    print(f"path (g) inpaint launches: {launches_inp}")
+    miss = mask == 0
+    err_before = float((corrupted - img_d).abs()[miss].mean())
+    err_after = float((filled - img_d).abs()[miss].mean())
+    known = float((filled - img_d).abs()[~miss].max())
+    check(tuple(filled.shape) == (IMG_SIZE, IMG_SIZE)
+          and bool(torch.isfinite(filled).all()), "inpaint: shape, finite")
+    check(err_after < 0.25 * err_before,
+          f"inpaint: missing-pixel error {err_after} against {err_before}")
+    check(known <= 1e-4, f"inpaint changed known pixels by {known}")
+    print(f"inpaint {IMG_SIZE}^2, {float(miss.float().mean()):.4f} missing: "
+          f"mean error on the missing pixels {err_before:.4f} -> "
+          f"{err_after:.4f}; known pixels within {known:.3g}")
+
+    # path (h): the LLC encoder on the same signals
+    llc_enc = lt.SparseEncoder("llc", {"knn": 5})
+    lt.reset_launch_counts()
+    Gl = llc_enc.encode(Xs, Ds)
+    torch.cuda.synchronize()
+    launches_h = lt.launch_counts()
+    print(f"path (h) SparseEncoder('llc') launches: {launches_h}")
+    check(tuple(Gl.shape) == (K, N_SWEEP) and bool(torch.isfinite(Gl).all()),
+          "llc codes: shape, finite")
+    sum_err = float((Gl.sum(dim=0) - 1.0).abs().max())
+    check(sum_err <= 1e-5, f"llc codes sum to 1 within {sum_err}")
+    # the support is the 5 atoms of largest d.x, up to float32 rounding of
+    # d.x (1e-5 on unit vectors)
+    sup_gap = -1.0
+    for s in range(0, N_SWEEP, 16384):
+        Gb = Gl[:, s:s + 16384].T
+        sim = Xs[:, s:s + 16384].T.double() @ Ds.double()
+        sup = Gb != 0
+        check(bool((sup.sum(dim=1) == 5).all()), "llc support size")
+        lo = torch.where(sup, sim, math.inf).amin(dim=1)
+        hi = torch.where(sup, -math.inf, sim).amax(dim=1)
+        sup_gap = max(sup_gap, float((hi - lo).max()))
+    check(sup_gap <= 1e-5, f"llc support is not the 5 largest d.x: {sup_gap}")
+    # 1,024 lanes against a float64 numpy solve of the same system: a (5, 5)
+    # system of unit-norm 64-dim atoms, solved by float32 CG in another
+    # summation order, so the codes agree within 1e-4
+    Gn = Gl[:, :1024].double().cpu().numpy()
+    Dn = Ds.double().cpu().numpy()
+    Xn64 = Xs[:, :1024].double().cpu().numpy()
+    llc_err = 0.0
+    for n in range(1024):
+        sel = np.nonzero(Gn[:, n])[0]
+        z = Dn[:, sel].T - Xn64[:, n][None, :]
+        C = z @ z.T
+        C += (1e-4 * np.trace(C) + 1e-12) * np.eye(len(sel))
+        c = np.linalg.solve(C, np.ones(len(sel)))
+        llc_err = max(llc_err, float(np.abs(Gn[sel, n] - c / c.sum()).max()))
+    check(llc_err <= 1e-4, f"llc codes against float64: {llc_err}")
+    print(f"llc N={N_SWEEP} knn=5: codes sum to 1 within {sum_err:.3g}; the "
+          f"support is the 5 largest d.x (gap {sup_gap:.3g}); 1024 lanes "
+          f"within {llc_err:.3g} of a float64 solve")
+    del Gl
+
+    paths = (launches, launches_g, launches_b, launches_d, launches_e,
+             launches_f, launches_inp, launches_h)
     for name in launches:
-        total = (launches[name] + launches_g[name] + launches_b[name]
-                 + launches_d[name])
+        total = sum(counts[name] for counts in paths)
         check(total > 0, f"kernel {name} not launched on any main path")
 
     ref = omp_fused_reference(Db, Xb, T=T)
@@ -683,39 +990,77 @@ def main():
     den_plain_ms = cuda_ms(torch, plain_denoise)
     print(f"denoise {IMG_SIZE}^2: kernel path {den_ms / 1e3:.4f} s, plain "
           f"path {den_plain_ms / 1e3:.4f} s")
+    for cd in ("f32", "bf16"):
+        on = cuda_ms(torch, lambda: _omp_impl(
+            Db, Xb, 0.0, T=T, eps_mode=False, corr_dtype=cd,
+            fused_select=True))
+        off = cuda_ms(torch, lambda: _omp_impl(
+            Db, Xb, 0.0, T=T, eps_mode=False, corr_dtype=cd))
+        print(f"_omp_impl corr_dtype={cd} p={P} K={K} T={T} N={N}: "
+              f"fused_select=True {on:.3f} ms = {N / on * 1e3:.1f} "
+              f"patches/s; False {off:.3f} ms = {N / off * 1e3:.1f} "
+              f"patches/s")
+    for what, enc, kw in (("nn_omp", nn_enc, {"dense": False}),
+                          ("llc", llc_enc, {})):
+        ms = cuda_ms(torch, lambda: enc.encode(Xs, Ds, **kw), reps=3)
+        print(f"{what} encoder (blocks of {enc.block}) p={P} K={K} "
+              f"N={N_SWEEP}: {ms:.3f} ms = {N_SWEEP / ms * 1e3:.1f} "
+              f"patches/s")
+    inp_ms = cuda_ms(torch, lambda: inpaint(corrupted, mask, Dd, T=8),
+                     reps=3)
+    print(f"inpaint {IMG_SIZE}^2 K=256 T=8 ({NP} patches): "
+          f"{inp_ms / 1e3:.4f} s")
 
+    # library_ms: one PyTorch call computing the same function, where one
+    # exists (K7's is the reference profile's matmul + argmax pair)
     kernels = [
         {"name": "omp_fused (fixed T)", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
          "replaces": "lyssandra_tpu/ops/pallas_omp.py:79",
          "launches": launches["omp_fused_t"] + launches_b["omp_fused_t"],
          "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "omp_fused (eps exit)", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
          "replaces": "lyssandra_tpu/ops/pallas_omp.py:235",
          "launches": launches["omp_fused_eps"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
         {"name": "fused_patches", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/fused_patches.cu",
          "replaces": "lyssandra_tpu/ops/pallas_patches.py:37",
          "launches": launches["fused_patches"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": None},
         {"name": "group_omp_fused", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/group_omp.cu",
          "replaces": "lyssandra_tpu/ops/pallas_group.py:52,253",
          "launches": launches_g["group_omp_fused"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0],
+         "bound_by": k4_bound[1], "library_ms": None},
         {"name": "fs_cold", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/fs_cold.cu",
          "replaces": "lyssandra_tpu/ops/pallas_fs.py:53",
          "launches": launches_d["fs_cold"], "max_abs_err": k6_err,
-         "ms": k6_ms, "plain_ms": k6_plain_ms},
+         "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
+         "bound_by": k6_bound[1], "library_ms": None},
+        {"name": "select_abs_argmax", "route": "cuda",
+         "source": "lyssandra_tpu_torch/csrc/select.cu",
+         "replaces": "lyssandra_tpu/ops/pallas_select.py:35",
+         "launches": launches_e["select_abs_argmax"],
+         "max_abs_err": k7_err, "mismatch_share": k7_share,
+         "ms": k7_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound[0],
+         "bound_by": k7_bound[1], "library_ms": k7_lib_ms,
+         "bf16_ms": k7_bf16_ms, "bf16_plain_ms": k7_plain_bf16_ms,
+         "bf16_max_abs_err": k7_err_bf16, "bf16_bound_ms": k7_bound_bf16[0],
+         "bf16_bound_by": k7_bound_bf16[1]},
     ]
     for k in kernels:
         check(all(math.isfinite(k[f]) for f in ("max_abs_err", "ms",
-                                                 "plain_ms")),
+                                                 "plain_ms", "bound_ms")),
               f"non-finite measurement for {k['name']}")
+        check(k["launches"] > 0, f"{k['name']} launched no time on its path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

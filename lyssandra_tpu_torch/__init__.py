@@ -18,9 +18,12 @@ PyTorch version in the same module.  A wrapper runs the plain version only
 for tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
 
 Ported so far: the patch ops, the DCT dictionary, the greedy solvers
-(OMP, Batch-OMP, group OMP, thresholding), feature-sign lasso coding and
-FISTA, the ``SparseEncoder`` front end with those routes, and the
-error-constrained denoiser.
+(OMP, Batch-OMP, group OMP, NN-OMP, masked OMP, thresholding),
+feature-sign lasso coding, FISTA and LLC, the ``SparseEncoder`` front end
+with those routes, the error-constrained denoiser and inpainting.
+
+Entry points run on the GPU unless the caller asks for the CPU, by
+``device="cpu"`` or by handing over CPU tensors (``_device.py``).
 """
 
 import torch
@@ -44,6 +47,8 @@ from lyssandra_tpu_torch.solvers import (  # noqa: E402
     fista,
     group_omp,
     lasso,
+    llc,
+    nn_omp,
     omp,
     sparse_encoder,
     threshold_code,
@@ -63,6 +68,8 @@ __all__ = [
     "group_omp",
     "lasso",
     "launch_counts",
+    "llc",
+    "nn_omp",
     "omp",
     "psnr",
     "remove_dc",

@@ -46,6 +46,8 @@ _SIGNATURES = {
     # gact, gr, done, stream
     "lyssa_fs_cold": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P,
                       _P, _P, _P],
+    # r, D, p, K, N, bf16, k_out, stream
+    "lyssa_select_abs_argmax": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -1,3 +1,4 @@
 from lyssandra_tpu_torch.apps.denoise import Denoiser, denoise, psnr
+from lyssandra_tpu_torch.apps.inpaint import inpaint
 
-__all__ = ["Denoiser", "denoise", "psnr"]
+__all__ = ["Denoiser", "denoise", "inpaint", "psnr"]

@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.config import DenoiseConfig
 from lyssandra_tpu_torch.ops.cuda_patches import fused_patch_pipeline
 from lyssandra_tpu_torch.ops.patches import (
@@ -100,7 +101,8 @@ class Denoiser:
     """Reference-mirroring denoiser: ``denoise(img) -> img_hat``.
 
     D: unit-norm dictionary over p x p patches (e.g. DCT or K-SVD-learned),
-    moved to ``device`` (default: where D lies, else the CPU).
+    moved to ``device`` (default: where D lies if it is a tensor, else the
+    GPU; see ``_device.resolve_device``).  Noisy images go to D's device.
     """
 
     def __init__(self, D, cfg: DenoiseConfig = DenoiseConfig(), *,
@@ -108,9 +110,8 @@ class Denoiser:
         if mesh is not None:
             raise NotImplementedError(
                 "sharded denoising (mesh=) is not ported yet")
-        if isinstance(D, torch.Tensor):
-            device = D.device if device is None else device
-        else:
+        device = resolve_device(device, D)
+        if not isinstance(D, torch.Tensor):
             D = np.array(D, dtype=np.float32)     # a writable copy
         self.D = torch.as_tensor(D, dtype=torch.float32, device=device)
         self.cfg = cfg

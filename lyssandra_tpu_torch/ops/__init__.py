@@ -5,6 +5,7 @@ from lyssandra_tpu_torch.ops.cuda_patches import (
     fused_patch_pipeline,
     fused_patch_pipeline_p1,
 )
+from lyssandra_tpu_torch.ops.cuda_select import select_abs_argmax
 from lyssandra_tpu_torch.ops.dictionaries import (
     dct_dictionary,
     dct_dictionary_color,
@@ -29,6 +30,7 @@ def launch_counts() -> dict[str, int]:
         "fused_patches": fused_patch_pipeline_p1.launches,
         "group_omp_fused": group_omp_fused.launches,
         "fs_cold": fs_cold_fused.launches,
+        "select_abs_argmax": select_abs_argmax.launches,
     }
 
 
@@ -38,3 +40,4 @@ def reset_launch_counts() -> None:
     fused_patch_pipeline_p1.launches = 0
     group_omp_fused.launches = 0
     fs_cold_fused.launches = 0
+    select_abs_argmax.launches = 0

@@ -2,6 +2,8 @@ from lyssandra_tpu_torch.solvers.greedy import (
     GreedyResult,
     batch_omp,
     group_omp,
+    masked_omp,
+    nn_omp,
     omp,
     threshold_code,
 )
@@ -11,8 +13,9 @@ from lyssandra_tpu_torch.solvers.lasso import (
     fista,
     lasso,
 )
+from lyssandra_tpu_torch.solvers.llc import llc
 from lyssandra_tpu_torch.solvers.encoder import SparseEncoder, sparse_encoder
 
 __all__ = ["FeatureSignResult", "GreedyResult", "SparseEncoder", "batch_omp",
-           "feature_sign", "fista", "group_omp", "lasso", "omp",
-           "sparse_encoder", "threshold_code"]
+           "feature_sign", "fista", "group_omp", "lasso", "llc",
+           "masked_omp", "nn_omp", "omp", "sparse_encoder", "threshold_code"]

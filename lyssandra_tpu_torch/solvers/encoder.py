@@ -4,8 +4,9 @@
 Validates atom norms, chunks the signal matrix into fixed-size blocks
 (the last one zero-padded) and codes the blocks one after another on one
 device.  Routes ported so far: ``bomp``/``batch_omp``, ``omp``,
-``group_omp``, the thresholding coders, ``lasso``/``feature_sign``/``fss``
-(feature-sign search) and ``fista``.  The reference's other routes raise
+``group_omp``, ``nn_omp``, the thresholding coders,
+``lasso``/``feature_sign``/``fss`` (feature-sign search), ``fista`` and
+``llc``.  The reference's other routes (``lars``/``lasso_lars``) raise
 ``NotImplementedError`` naming the ROADMAP item that ports them, and so
 does a data ``mesh`` (ROADMAP A13).
 """
@@ -17,32 +18,32 @@ from typing import Any
 
 import torch
 
+from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.solvers import greedy
 from lyssandra_tpu_torch.solvers.lasso import feature_sign, fista
+from lyssandra_tpu_torch.solvers.llc import llc
 
 _THRESHOLDING = ("thresholding", "soft_thresholding", "hard_thresholding")
 _CONVEX = ("lasso", "feature_sign", "fss", "lars", "lasso_lars")
 # routes of the reference not ported yet -> the ROADMAP item that ports them
-_NOT_PORTED = {
-    "nn_omp": "A10",
-    "lars": "A8", "lasso_lars": "A8",
-    "llc": "A10",
-}
+_NOT_PORTED = {"lars": "A8", "lasso_lars": "A8"}
 
 
 class SparseEncoder:
     """Encode signal columns into sparse codes over a fixed dictionary.
 
-    algorithm: 'omp' | 'bomp' (batch_omp) | 'group_omp' | 'thresholding'
-               ('soft_thresholding', 'hard_thresholding') | 'lasso'
-               ('feature_sign', 'fss': feature-sign search) | 'fista'
+    algorithm: 'omp' | 'bomp' (batch_omp) | 'group_omp' | 'nn_omp'
+               | 'thresholding' ('soft_thresholding', 'hard_thresholding')
+               | 'lasso' ('feature_sign', 'fss': feature-sign search)
+               | 'fista' | 'llc' (locality-constrained coding)
     params: algorithm kwargs (T, eps, lam, groups, kind, ...).
     block:  signals per solver call; longer inputs are coded in blocks of
             this size, the last one zero-padded.  Default 16384 for greedy
             routes, 2048 for convex ones (the reference's defaults, tuned
             on a TPU).
     mesh:   accepted for the reference's signature; only None is ported.
-    device: where D and X go (default: where D lies).
+    device: where D and X go (default: where the first tensor input lies,
+            else the GPU; see ``_device.resolve_device``).
     """
 
     def __init__(
@@ -76,6 +77,8 @@ class SparseEncoder:
             return greedy.omp
         if alg == "group_omp":
             return greedy.group_omp
+        if alg == "nn_omp":
+            return greedy.nn_omp
         if alg in _THRESHOLDING:
             kind = "hard" if alg == "hard_thresholding" else self.params.get(
                 "kind", "soft")
@@ -85,6 +88,8 @@ class SparseEncoder:
             return feature_sign
         if alg == "fista":
             return fista
+        if alg == "llc":
+            return llc
         if alg in _NOT_PORTED:
             raise NotImplementedError(
                 f"SparseEncoder route {alg!r} is not ported yet (ROADMAP "
@@ -115,9 +120,7 @@ class SparseEncoder:
             raise ValueError(
                 f"dense=False needs a greedy route {self._COMPACT}, "
                 f"got {self.algorithm!r}")
-        device = self.device
-        if device is None and isinstance(D, torch.Tensor):
-            device = D.device
+        device = resolve_device(self.device, D, X)
         D = greedy._as_f32(D, device)
         if self.check_atoms:
             nrm = torch.linalg.norm(D, dim=0)
@@ -125,7 +128,7 @@ class SparseEncoder:
                 raise ValueError(
                     "dictionary atoms must be unit-norm (got norms in "
                     f"[{float(nrm.min()):.4f}, {float(nrm.max()):.4f}])")
-        X = greedy._as_f32(X, D.device)
+        X = greedy._as_f32(X, device)
         N = X.shape[1]
         solver = self._solver()
         kw = self._solver_kwargs()

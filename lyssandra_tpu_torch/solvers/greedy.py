@@ -26,6 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from lyssandra_tpu_torch._device import resolve_device
+
 
 class GreedyResult(NamedTuple):
     """Compact result of a batched greedy pursuit.
@@ -171,7 +173,21 @@ def _check_corr_dtype(corr_dtype: str) -> None:
         raise ValueError(f"corr_dtype must be 'f32' or 'bf16': {corr_dtype!r}")
 
 
-def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32"):
+def _select_supported(D: torch.Tensor, X: torch.Tensor) -> bool:
+    """The fused selection (ops/cuda_select.py) takes the call: float32
+    tensors and a shape inside the kernel's envelope.  Its wrapper
+    launches the kernel for CUDA tensors and runs the plain selection for
+    CPU ones."""
+    from lyssandra_tpu_torch.ops.cuda_select import kernel_supports
+
+    return (
+        D.dtype == torch.float32 and X.dtype == torch.float32
+        and kernel_supports(D.shape[0], D.shape[1])
+    )
+
+
+def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32",
+              fused_select=False):
     """Explicit-residual OMP (oracle.omp): correlations from
     r = x - D_I gamma.  In eps mode a lane is done once its residual
     reaches the target, and the whole loop ends once every lane is done
@@ -179,14 +195,30 @@ def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32"):
 
     corr_dtype='bf16': the selection product alone takes bf16-rounded
     operands, accumulated in float32 (a product of two bf16 values is
-    exact in float32); the factor, solves and residuals stay float32."""
+    exact in float32); the factor, solves and residuals stay float32.
+
+    fused_select=True: each step's selection is one launch of the fused
+    selection kernel (``ops/cuda_select.py``), which never writes the
+    (N, K) correlation; on CPU tensors its wrapper runs the same ops as
+    the unfused selection.  Off by default, as in the reference."""
     _check_corr_dtype(corr_dtype)
     p, K = D.shape
     N = X.shape[1]
     dev, dt = D.device, D.dtype
     Xt = X.T                                   # (N, p)
     Dt = D.T
-    D_sel = D.bfloat16().float() if corr_dtype == "bf16" else D
+    if fused_select and _select_supported(D, X):
+        # imported here: ops/cuda_omp.py imports this module
+        from lyssandra_tpu_torch.ops.cuda_select import select_abs_argmax
+
+        def select(r):
+            return select_abs_argmax(r, D, bf16=corr_dtype == "bf16")
+    else:
+        D_sel = D.bfloat16().float() if corr_dtype == "bf16" else D
+
+        def select(r):
+            r_sel = r.bfloat16().float() if corr_dtype == "bf16" else r
+            return _argmax_abs(r_sel @ D_sel)
     xnormsq = (Xt * Xt).sum(dim=1)
     r = Xt
     Dsel = torch.zeros((N, T, p), dtype=dt, device=dev)
@@ -200,8 +232,7 @@ def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32"):
     for t in range(T):
         if eps_mode and bool(done.all()):
             break
-        r_sel = r.bfloat16().float() if corr_dtype == "bf16" else r
-        k = _argmax_abs(r_sel @ D_sel)
+        k = select(r)
         dk = Dt[k.long()]                                    # (N, p)
         g = torch.einsum("ntp,np->nt", Dsel, dk)
         Linv_n, nu = _append_cholesky_inv(Linv, g, t)
@@ -265,7 +296,8 @@ def batch_omp(D, X, T: int, eps: float | None = None, *,
     D: (p, K) unit-norm dictionary.  X: (p, N) signals.  T-sparse mode
     (eps=None) or error-constrained mode (stop when ||r||_2 <= eps, never
     exceeding T atoms).  Returns Gamma (K, N) if dense, else GreedyResult.
-    Inputs go to ``device`` (default: where D lies).
+    Inputs go to ``device`` (default: where the first tensor input lies,
+    else the GPU; see ``_device.resolve_device``).
 
     refresh: how the per-step correlation D^T r is updated when the fused
     kernel does not take the call.
@@ -277,8 +309,7 @@ def batch_omp(D, X, T: int, eps: float | None = None, *,
     selection product (see ``_omp_impl``; the Gram form ignores it, as the
     reference's does).
     """
-    if device is None and isinstance(D, torch.Tensor):
-        device = D.device
+    device = resolve_device(device, D, X)
     D = _as_f32(D, device)
     X = _as_f32(X, device)
     p, K = D.shape
@@ -307,8 +338,7 @@ def omp(D, X, T: int, eps: float | None = None, *, dense: bool = True,
     """Orthogonal Matching Pursuit with explicit residual (oracle.omp).
     ``fused=False`` forces the batched form on any device; ``corr_dtype``
     as in ``batch_omp``."""
-    if device is None and isinstance(D, torch.Tensor):
-        device = D.device
+    device = resolve_device(device, D, X)
     D = _as_f32(D, device)
     X = _as_f32(X, device)
     if fused and _fused_supported(D, X, T, corr_dtype):
@@ -509,8 +539,7 @@ def group_omp(D, X, groups, T: int, eps: float | None = None, *,
     ``interpret`` and ``packed`` keywords choose between TPU variants of
     one computation and have no counterpart here.
     """
-    if device is None and isinstance(D, torch.Tensor):
-        device = D.device
+    device = resolve_device(device, D, X)
     D = _as_f32(D, device)
     X = _as_f32(X, device)
     from lyssandra_tpu_torch.ops.cuda_group import (
@@ -538,11 +567,276 @@ def group_omp(D, X, groups, T: int, eps: float | None = None, *,
 def threshold_code(D, X, lam: float, kind: str = "soft", *, device=None):
     """One-shot thresholding coder: Gamma = shrink(D^T X, lam), soft or
     hard (oracle parity)."""
-    if device is None and isinstance(D, torch.Tensor):
-        device = D.device
+    device = resolve_device(device, D, X)
     D = _as_f32(D, device)
     X = _as_f32(X, device)
     A = D.T @ X
     if kind == "soft":
         return torch.sign(A) * (A.abs() - lam).clamp_min(0.0)
     return A * (A.abs() > lam)
+
+
+def _masked_omp_impl(D, X, M, eps, *, T, eps_mode):
+    """OMP over each lane's observed coordinates (oracle.masked_omp): codes
+    M o x over the masked atoms M o d_k, selecting by |d^T r| / ||M o d_k||.
+
+    The residual is masked by construction (x' and every selected atom
+    are), so the correlation product needs no mask.  An atom whose masked
+    norm is <= 1e-6 scores -1 and is never picked over a valid one.  The
+    factor is built over unit-normalised masked atoms; the codes are
+    rescaled to the unnormalised ones at the end.  The loop ends early in
+    eps mode as ``_omp_impl``'s does."""
+    N = X.shape[1]
+    p = D.shape[0]
+    dev, dt = D.device, D.dtype
+    Mt = M.T.to(dt)                            # (N, p)
+    Xt = X.T * Mt                              # observed coordinates only
+    Dt = D.T
+    nrm = torch.sqrt((Mt @ (D * D)).clamp_min(0.0))          # (N, K)
+    invalid = nrm <= 1e-6
+    xnormsq = (Xt * Xt).sum(dim=1)
+    r = Xt
+    Dsel = torch.zeros((N, T, p), dtype=dt, device=dev)
+    Linv = torch.zeros((N, T, T), dtype=dt, device=dev)
+    idx = torch.zeros((N, T), dtype=torch.int32, device=dev)
+    a0sel = torch.zeros((N, T), dtype=dt, device=dev)
+    err = xnormsq
+    nsel = torch.zeros((N,), dtype=torch.int32, device=dev)
+    done = xnormsq <= eps * eps if eps_mode else \
+        torch.zeros((N,), dtype=torch.bool, device=dev)
+    for t in range(T):
+        if eps_mode and bool(done.all()):
+            break
+        score = torch.where(invalid, -1.0,
+                            (r @ D).abs() / nrm.clamp_min(1e-6))
+        k = _argmax_first(score)
+        dk = Dt[k.long()] * Mt                               # masked atom
+        nk = nrm.gather(1, k.long()[:, None])                # (N, 1)
+        g = torch.einsum("ntp,np->nt", Dsel, dk)
+        Linv_n, nu = _append_cholesky_inv(Linv, g / nk.clamp_min(1e-6), t)
+        nk = nk[:, 0]
+        bad = (nu <= 1e-6) | (nk <= 1e-6)
+        dkn = dk / nk.clamp_min(1e-6)[:, None]
+        Dsel_n = Dsel.clone()
+        Dsel_n[:, t] = dkn
+        idx_n = idx.clone()
+        idx_n[:, t] = k
+        a0sel_n = a0sel.clone()
+        a0sel_n[:, t] = (dkn * Xt).sum(dim=1)
+        gamma = _solve_gamma(Linv_n, a0sel_n)
+        r_n = Xt - torch.einsum("nt,ntp->np", gamma, Dsel_n)
+        err_n = (r_n * r_n).sum(dim=1)
+        frozen = done | bad
+        r = _freeze(frozen, r_n, r)
+        Dsel = _freeze(frozen, Dsel_n, Dsel)
+        Linv = _freeze(frozen, Linv_n, Linv)
+        idx = _freeze(frozen, idx_n, idx)
+        a0sel = _freeze(frozen, a0sel_n, a0sel)
+        err = _freeze(frozen, err_n, err)
+        nsel = torch.where(frozen, nsel, nsel + 1)
+        done = frozen | (err <= eps * eps) if eps_mode else frozen
+    gamma = _solve_gamma(Linv, a0sel) \
+        / nrm.gather(1, idx.long()).clamp_min(1e-6)
+    valid = torch.arange(T, device=dev)[None, :] < nsel[:, None]
+    return GreedyResult(idx, torch.where(valid, gamma, 0.0), err, nsel)
+
+
+def masked_omp(D, X, M, T: int, eps: float | None = None, *,
+               dense: bool = True, device=None):
+    """Masked (inpainting) OMP: each lane's pursuit over its observed
+    coordinates (oracle.masked_omp).  M: (p, N) 0/1 observation mask.
+    Returns Gamma (K, N) if dense, else GreedyResult.  Inputs go to
+    ``device`` (default: where the first tensor input lies, else the GPU)."""
+    device = resolve_device(device, D, X, M)
+    D = _as_f32(D, device)
+    X = _as_f32(X, device)
+    M = _as_f32(M, device)
+    res = _masked_omp_impl(D, X, M, 0.0 if eps is None else float(eps), T=T,
+                           eps_mode=eps is not None)
+    return res.dense(D.shape[1]) if dense else res
+
+
+def _nn_masked_cg(Gs, pos, rhs, iters: int):
+    """CG on the active block of Gs (pos = 0/1 slot mask), with 1e-8 added
+    to the active diagonal and 1 on the inactive one; returns x * pos."""
+    d = Gs.shape[1]
+    eye = torch.eye(d, dtype=rhs.dtype, device=rhs.device)
+    Mm = Gs * (pos[:, :, None] * pos[:, None, :]) \
+        + eye[None] * torch.where(pos > 0, 1e-8, 1.0)[:, :, None]
+    x = torch.zeros_like(rhs)
+    res = rhs
+    pv = res
+    rs = (res * res).sum(dim=1)
+    for _ in range(iters):
+        Mp = torch.einsum("nts,ns->nt", Mm, pv)
+        al = rs / ((pv * Mp).sum(dim=1) + 1e-30)
+        x = x + al[:, None] * pv
+        res = res - al[:, None] * Mp
+        rs2 = (res * res).sum(dim=1)
+        pv = res + (rs2 / (rs + 1e-30))[:, None] * pv
+        rs = rs2
+    return x * pos
+
+
+def _nn_err(xnormsq, gamma, a0sel, Gsel):
+    """||x - D_I gamma||^2 from the restricted Gram."""
+    return (xnormsq - 2 * (gamma * a0sel).sum(dim=1)
+            + torch.einsum("nt,ntj,nj->n", gamma, Gsel, gamma))
+
+
+def _nn_omp_impl(D, X, *, T, nnls_rounds):
+    """Batched non-negative OMP (oracle.nn_omp), the reference's scan form.
+
+    Selection is the argmax of the signed residual correlation, selected
+    atoms excluded by a 1e30 penalty; a lane freezes once its best
+    correlation is <= 0.  Each step solves the NNLS over the active set by
+    prune-only Lawson-Hanson: ``nnls_rounds`` rounds of a masked CG of T+2
+    iterations over the (N, T, T) restricted Gram, pruning negative
+    coefficients after each."""
+    p, K = D.shape
+    N = X.shape[1]
+    dev, dt = X.device, X.dtype
+    Xt = X.T
+    Dt = D.T
+    xnormsq = (Xt * Xt).sum(dim=1)
+    r = Xt
+    Dsel = torch.zeros((N, T, p), dtype=dt, device=dev)
+    Gsel = torch.zeros((N, T, T), dtype=dt, device=dev)
+    idx = torch.zeros((N, T), dtype=torch.int32, device=dev)
+    a0sel = torch.zeros((N, T), dtype=dt, device=dev)
+    smask = torch.zeros((N, T), dtype=dt, device=dev)
+    done = torch.zeros((N,), dtype=torch.bool, device=dev)
+    gamma = torch.zeros((N, T), dtype=dt, device=dev)
+    nsel = torch.zeros((N,), dtype=torch.int32, device=dev)
+    for t in range(T):
+        sel = torch.zeros((N, K), dtype=dt, device=dev)
+        sel.scatter_add_(1, idx.long(), smask)
+        s = r @ D - 1e30 * sel
+        k = _argmax_first(s)
+        stop = done | (s.amax(dim=1) <= 0.0)
+        dk = Dt[k.long()]                                    # (N, p)
+        grow = torch.einsum("ntp,np->nt", Dsel, dk) * smask  # G[I, k]
+        Gsel_n = Gsel.clone()
+        Gsel_n[:, t, :] += grow
+        Gsel_n[:, :, t] += grow
+        Gsel_n[:, t, t] += 1.0
+        Dsel_n = Dsel.clone()
+        Dsel_n[:, t] = dk
+        idx_n = idx.clone()
+        idx_n[:, t] = k
+        a0sel_n = a0sel.clone()
+        a0sel_n[:, t] = (dk * Xt).sum(dim=1)
+        smask_n = smask.clone()
+        smask_n[:, t] = 1.0
+        pos = smask_n
+        g = torch.zeros_like(a0sel_n)
+        for _ in range(nnls_rounds):
+            g = _nn_masked_cg(Gsel_n, pos, a0sel_n * pos, T + 2)
+            pos = pos * (g > 0)
+        gamma_n = g.clamp_min(0.0) * pos
+        r_n = Xt - torch.einsum("nt,ntp->np", gamma_n, Dsel_n)
+        r = _freeze(stop, r_n, r)
+        Dsel = _freeze(stop, Dsel_n, Dsel)
+        Gsel = _freeze(stop, Gsel_n, Gsel)
+        idx = _freeze(stop, idx_n, idx)
+        a0sel = _freeze(stop, a0sel_n, a0sel)
+        smask = _freeze(stop, smask_n, smask)
+        gamma = _freeze(stop, gamma_n, gamma)
+        nsel = torch.where(stop, nsel, nsel + 1)
+        done = stop
+    return GreedyResult(idx, gamma, _nn_err(xnormsq, gamma, a0sel, Gsel),
+                        nsel)
+
+
+def _nn_omp_impl_unrolled(D, X, *, T, nnls_rounds):
+    """Unrolled-step nn_omp (the semantics of ``_nn_omp_impl``): step t's
+    system is (t+1)-dimensional, so its masked CG runs t+2 iterations on
+    (N, t+1, t+1); step 0's one-atom NNLS is a closed-form divide.  Frozen
+    lanes take a zero atom, so their new slot is inert."""
+    K = D.shape[1]
+    N = X.shape[1]
+    dev, dt = X.device, X.dtype
+    Xt = X.T
+    Dt = D.T
+    xnormsq = (Xt * Xt).sum(dim=1)
+    rows = torch.arange(N, device=dev)
+    r = Xt
+    done = torch.zeros((N,), dtype=torch.bool, device=dev)
+    selpen = torch.zeros((N, K), dtype=dt, device=dev)   # 1e30 per pick
+    Gsel = Dstack = None
+    gamma = torch.zeros((N, 0), dtype=dt, device=dev)
+    a0sel = torch.zeros((N, 0), dtype=dt, device=dev)
+    smask = torch.zeros((N, 0), dtype=dt, device=dev)
+    idx = torch.zeros((N, 0), dtype=torch.int32, device=dev)
+    nsel = torch.zeros((N,), dtype=torch.int32, device=dev)
+    for t in range(T):
+        s = r @ D - selpen
+        k = _argmax_first(s)
+        stop = done | (s.amax(dim=1) <= 0.0)
+        livef = (~stop).to(dt)
+        selpen.index_put_((rows, k.long()), 1e30 * livef, accumulate=True)
+        dk = Dt[k.long()] * livef[:, None]                   # (N, p)
+        a0k = (dk * Xt).sum(dim=1)
+        if t == 0:
+            Gsel = (dk * dk).sum(dim=1)[:, None, None]
+            Dstack = dk[:, None, :]
+        else:
+            cross = torch.einsum("ntp,np->nt", Dstack, dk)    # (N, t)
+            dkk = (dk * dk).sum(dim=1)
+            Gsel = torch.cat([
+                torch.cat([Gsel, cross[:, :, None]], dim=2),
+                torch.cat([cross[:, None, :], dkk[:, None, None]], dim=2),
+            ], dim=1)
+            Dstack = torch.cat([Dstack, dk[:, None, :]], dim=1)
+        # idx is 0-padded after stop (the GreedyResult contract)
+        idx = torch.cat([idx, torch.where(stop, 0, k)[:, None]], dim=1)
+        a0sel = torch.cat([a0sel, a0k[:, None]], dim=1)
+        smask = torch.cat([smask, livef[:, None]], dim=1)
+        if t == 0:
+            # one-atom NNLS in closed form (a0k = the max > 0 on live lanes)
+            new_gamma = (a0sel / Gsel[:, :, 0].clamp_min(1e-30)).clamp_min(
+                0.0) * smask
+        else:
+            pos = smask
+            g = torch.zeros_like(a0sel)
+            for _ in range(nnls_rounds):
+                g = _nn_masked_cg(Gsel, pos, a0sel * pos, t + 2)
+                pos = pos * (g > 0)
+            new_gamma = g.clamp_min(0.0) * pos
+        new_r = Xt - torch.einsum("nt,ntp->np", new_gamma, Dstack)
+        gamma_prev = torch.cat([gamma, gamma.new_zeros((N, 1))], dim=1)
+        gamma = torch.where(stop[:, None], gamma_prev, new_gamma)
+        r = torch.where(stop[:, None], r, new_r)
+        nsel = torch.where(stop, nsel, nsel + 1)
+        done = stop
+    return GreedyResult(idx, gamma, _nn_err(xnormsq, gamma, a0sel, Gsel),
+                        nsel)
+
+
+def nn_omp(D, X, T: int, *, nnls_rounds: int = 4, dense: bool = True,
+           unroll: bool | None = None, device=None):
+    """Non-negative OMP (oracle.nn_omp): positive-correlation selection and
+    a bounded active-set NNLS per step (prune-only Lawson-Hanson,
+    ``nnls_rounds`` solve/prune passes).  Returns Gamma (K, N) >= 0, or a
+    GreedyResult with ``dense=False``.
+
+    ``unroll=None`` takes the unrolled-step form for T <= 12 and the scan
+    form above, as the reference does; the two round differently.  Inputs
+    go to ``device`` (default: where the first tensor input lies, else the
+    GPU)."""
+    device = resolve_device(device, D, X)
+    D = _as_f32(D, device)
+    X = _as_f32(X, device)
+    if T == 0:
+        N = X.shape[1]
+        res = GreedyResult(
+            torch.zeros((N, 0), dtype=torch.int32, device=device),
+            torch.zeros((N, 0), dtype=X.dtype, device=device),
+            (X * X).sum(dim=0), torch.zeros((N,), dtype=torch.int32,
+                                            device=device))
+        return res.dense(D.shape[1]) if dense else res
+    if unroll is None:
+        unroll = T <= 12
+    impl = _nn_omp_impl_unrolled if unroll else _nn_omp_impl
+    res = impl(D, X, T=T, nnls_rounds=nnls_rounds)
+    return res.dense(D.shape[1]) if dense else res

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.solvers.greedy import _argmax_first, _as_f32
 
 
@@ -530,7 +531,8 @@ def feature_sign(
     Solves min_g ||x - D g||^2 + lam ||g||_1 per column of X (p, N) over D
     (p, K).  Returns the dense codes Gamma (K, N), or a FeatureSignResult
     with convergence and overflow flags when full_result=True.  Inputs go
-    to ``device`` (default: where D lies).
+    to ``device`` (default: where the first tensor input lies, else the
+    GPU; see ``_device.resolve_device``).
 
     Options, each the reference's with the same optimum at every setting
     (only the iteration count changes):
@@ -568,10 +570,9 @@ def feature_sign(
             f"cold_backend must be None, 'xla' or 'pallas': {cold_backend!r}")
     if warm_seed not in ("omp", "fista"):
         raise ValueError(f"warm_seed must be 'omp' or 'fista': {warm_seed!r}")
-    if device is None and isinstance(D, torch.Tensor):
-        device = D.device
+    device = resolve_device(device, D, X)
     D = _as_f32(D, device)
-    X = _as_f32(X, D.device)
+    X = _as_f32(X, device)
     lam = float(lam)
     Dt, Xt = D.T, X.T
     A0 = X.T @ D
@@ -737,10 +738,9 @@ def _fista_body(D, X, A0, lam, g0, n_iter: int):
 def fista(D, X, lam: float, n_iter: int = 200, *, device=None):
     """FISTA (Beck & Teboulle 2009) for ||x - Dg||^2 + lam ||g||_1, all
     lanes at once.  Returns Gamma (K, N)."""
-    if device is None and isinstance(D, torch.Tensor):
-        device = D.device
+    device = resolve_device(device, D, X)
     D = _as_f32(D, device)
-    X = _as_f32(X, D.device)
+    X = _as_f32(X, device)
     A0 = D.T @ X
     g0 = torch.zeros(D.shape[1], X.shape[1], dtype=D.dtype, device=D.device)
     return _fista_body(D, X, A0, float(lam), g0, n_iter)

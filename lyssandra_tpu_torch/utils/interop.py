@@ -12,15 +12,16 @@ import warnings
 import numpy as np
 import torch
 
+from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.apps.denoise import Denoiser
 from lyssandra_tpu_torch.config import DenoiseConfig
 from lyssandra_tpu_torch.solvers.encoder import SparseEncoder
 
 
 def dictionary_from_numpy(D, device=None) -> torch.Tensor:
-    """A (p, K) float array -> a contiguous float32 tensor on ``device``.
-    Warns when the atoms (columns) are not unit-norm, which every solver
-    here assumes."""
+    """A (p, K) float array -> a contiguous float32 tensor on ``device``
+    (default: the GPU; see ``_device.resolve_device``).  Warns when the
+    atoms (columns) are not unit-norm, which every solver here assumes."""
     D = np.asarray(D)
     if D.ndim != 2:
         raise ValueError(f"dictionary must be (p, K), got shape {D.shape}")
@@ -35,12 +36,13 @@ def dictionary_from_numpy(D, device=None) -> torch.Tensor:
             f"[{norms.min():.4g}, {norms.max():.4g}])", stacklevel=2)
     # a contiguous, writable float32 copy the tensor owns
     return torch.from_numpy(np.array(D, dtype=np.float32, order="C")).to(
-        device)
+        resolve_device(device))
 
 
 def denoiser_from_reference(D_np, cfg_dict: dict, device=None) -> Denoiser:
     """A Denoiser from a reference dictionary and the fields of a
-    reference ``DenoiseConfig`` (``dataclasses.asdict`` of it)."""
+    reference ``DenoiseConfig`` (``dataclasses.asdict`` of it), on
+    ``device`` (default: the GPU)."""
     return Denoiser(dictionary_from_numpy(D_np, device),
                     DenoiseConfig(**cfg_dict), device=device)
 
@@ -51,7 +53,8 @@ def encoder_from_reference(algorithm: str, params: dict | None = None, *,
                            device=None) -> SparseEncoder:
     """A SparseEncoder from a reference encoder's settings: its algorithm
     name, its params (array values such as ``groups`` become NumPy arrays,
-    NumPy scalars become Python numbers) and its block size."""
+    NumPy scalars become Python numbers) and its block size.  The encoder
+    resolves ``device`` at each ``encode`` (``_device.resolve_device``)."""
     def plain(v):
         if isinstance(v, np.generic):
             return v.item()

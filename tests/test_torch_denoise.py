@@ -45,7 +45,8 @@ def test_denoise_matches_oracle_and_reference(rng, T_max):
     noisy = (img + sigma * rng.standard_normal(img.shape)).astype(np.float32)
     D = oracle.dct_dictionary(8, 64)
     cfg = dict(patch=8, sigma=sigma, T_max=T_max, block=1024)
-    out = lt.denoise(noisy, D, sigma, cfg=lt.DenoiseConfig(**cfg))
+    out = lt.denoise(noisy, D, sigma, cfg=lt.DenoiseConfig(**cfg),
+                     device="cpu")
     assert isinstance(out, torch.Tensor) and tuple(out.shape) == img.shape
     ref = oracle.denoise(noisy.astype(np.float64), D, sigma, T_max=T_max)
     jax_out = jdenoise.denoise(noisy, D, sigma, cfg=JDenoiseConfig(**cfg))
@@ -99,13 +100,14 @@ def test_ksvd_dictionary_carries_over(rng):
         KSVDConfig(K=64, T=4, n_iter=2, init="dct")).fit(train).D_)
     cfg = JDenoiseConfig(sigma=sigma, T_max=12, block=4096)
     want = np.asarray(jdenoise.Denoiser(D, cfg)(noisy))
-    got = denoiser_from_reference(D, dataclasses.asdict(cfg))(noisy).numpy()
+    got = denoiser_from_reference(D, dataclasses.asdict(cfg),
+                                  device="cpu")(noisy).numpy()
     assert abs(_psnr(got, img) - _psnr(want, img)) < 0.01
 
 
 def test_denoiser_mesh_not_ported():
     with pytest.raises(NotImplementedError):
-        lt.Denoiser(lt.dct_dictionary(8, 64), mesh=object())
+        lt.Denoiser(lt.dct_dictionary(8, 64, device="cpu"), mesh=object())
 
 
 def test_denoise_colour_image(rng):
@@ -118,7 +120,8 @@ def test_denoise_colour_image(rng):
     noisy = (img + 25.0 * rng.standard_normal(img.shape)).astype(np.float32)
     D = np.asarray(dct_dictionary_color(8, 64))
     cfg = dict(sigma=25.0, T_max=12, block=4096)
-    got = lt.denoise(noisy, D, 25.0, cfg=lt.DenoiseConfig(**cfg)).numpy()
+    got = lt.denoise(noisy, D, 25.0, cfg=lt.DenoiseConfig(**cfg),
+                     device="cpu").numpy()
     want = np.asarray(jdenoise.denoise(noisy, D, 25.0,
                                        cfg=JDenoiseConfig(**cfg)))
     assert got.shape == img.shape

@@ -37,12 +37,14 @@ PORTED_ROUTES = [
     ("batch_omp", {"T": 3}),
     ("omp", {"T": 3}),
     ("group_omp", {"T": 2, "groups": GROUPS}),
+    ("nn_omp", {"T": 3}),
+    ("llc", {"knn": 3}),
     ("thresholding", {"lam": 0.1}),
     ("soft_thresholding", {"lam": 0.1}),
     ("hard_thresholding", {"lam": 0.1}),
     ("thresholding", {"lam": 0.1, "kind": "hard"}),
 ]
-COMPACT_ROUTES = ["bomp", "batch_omp", "omp", "group_omp"]
+COMPACT_ROUTES = ["bomp", "batch_omp", "omp", "group_omp", "nn_omp"]
 
 
 @pytest.mark.parametrize("N", [48, 50])
@@ -53,14 +55,16 @@ COMPACT_ROUTES = ["bomp", "batch_omp", "omp", "group_omp"]
 def test_encoder_route_matches_jax(tiny, alg, params, block, N):
     D, X = tiny
     X = X[:, :N]
-    got = SparseEncoder(alg, params, block=block).encode(X, D)
+    got = SparseEncoder(alg, params, block=block, device="cpu").encode(X,
+                                                                       D)
     want = np.asarray(jlt.SparseEncoder(alg, params, block=block).encode(
         X, D))
     assert tuple(got.shape) == (32, N)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
     if alg not in COMPACT_ROUTES:
         return
-    res = SparseEncoder(alg, params, block=block).encode(X, D, dense=False)
+    res = SparseEncoder(alg, params, block=block, device="cpu").encode(
+        X, D, dense=False)
     jres = jlt.SparseEncoder(alg, params, block=block).encode(X, D,
                                                              dense=False)
     width = 8 if alg == "group_omp" else 3          # T * gs slots, or T
@@ -78,33 +82,35 @@ def test_encoder_route_matches_jax(tiny, alg, params, block, N):
 def test_check_atoms_rejects_non_unit_atoms(tiny):
     D, X = tiny
     with pytest.raises(ValueError) as got:
-        SparseEncoder("bomp", {"T": 3}).encode(X, 2.0 * D)
+        SparseEncoder("bomp", {"T": 3}, device="cpu").encode(X, 2.0 * D)
     with pytest.raises(ValueError) as want:
         jlt.SparseEncoder("bomp", {"T": 3}).encode(X, 2.0 * D)
     assert str(got.value) == str(want.value)
     assert "unit-norm" in str(got.value)
     # within atol 1e-3 passes; check_atoms=False skips the check
-    SparseEncoder("bomp", {"T": 3}).encode(X, 1.0005 * D)
-    SparseEncoder("bomp", {"T": 3}, check_atoms=False).encode(X, 2.0 * D)
+    SparseEncoder("bomp", {"T": 3}, device="cpu").encode(X, 1.0005 * D)
+    SparseEncoder("bomp", {"T": 3}, check_atoms=False,
+                  device="cpu").encode(X, 2.0 * D)
 
 
 def test_compact_rejects_thresholding(tiny):
     D, X = tiny
     with pytest.raises(ValueError, match="dense=False"):
-        SparseEncoder("thresholding", {"lam": 0.1}).encode(X, D, dense=False)
+        SparseEncoder("thresholding", {"lam": 0.1}, device="cpu").encode(
+            X, D, dense=False)
 
 
-@pytest.mark.parametrize("alg", ["nn_omp", "lars", "lasso_lars", "llc"])
+@pytest.mark.parametrize("alg", ["lars", "lasso_lars"])
 def test_unported_routes_raise(tiny, alg):
     D, X = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        SparseEncoder(alg, {"lam": 0.2}).encode(X, D)
+        SparseEncoder(alg, {"lam": 0.2}, device="cpu").encode(X, D)
 
 
 def test_unknown_route_and_mesh_raise(tiny):
     D, X = tiny
     with pytest.raises(ValueError, match="unknown algorithm: nope"):
-        SparseEncoder("nope").encode(X, D)
+        SparseEncoder("nope", device="cpu").encode(X, D)
     with pytest.raises(NotImplementedError, match="A13"):
         SparseEncoder("bomp", {"T": 3}, mesh=object())
     assert SparseEncoder("bomp").block == 16384
@@ -117,7 +123,7 @@ def test_omp_route_takes_fused_keyword(tiny):
     # forwards params, so the port's omp must take it too
     D, X = tiny
     params = {"T": 3, "fused": False}
-    got = SparseEncoder("omp", params).encode(X, D)
+    got = SparseEncoder("omp", params, device="cpu").encode(X, D)
     want = np.asarray(jlt.SparseEncoder("omp", params).encode(X, D))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
@@ -125,7 +131,7 @@ def test_omp_route_takes_fused_keyword(tiny):
 @pytest.mark.parametrize("kind", ["soft", "hard"])
 def test_threshold_code_matches_jax(tiny, kind):
     D, X = tiny
-    got = threshold_code(D, X, 0.3, kind)
+    got = threshold_code(D, X, 0.3, kind, device="cpu")
     want = np.asarray(jgreedy.threshold_code(jnp.asarray(D), jnp.asarray(X),
                                              0.3, kind))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
@@ -138,7 +144,7 @@ def test_encoder_from_reference(tiny):
         "group_omp", {"T": np.int64(2), "groups": jnp.asarray(GROUPS)},
         block=16)
     enc = encoder_from_reference(ref.algorithm, ref.params, block=ref.block,
-                                 check_atoms=ref.check_atoms)
+                                 check_atoms=ref.check_atoms, device="cpu")
     assert isinstance(enc.params["groups"], np.ndarray)
     assert type(enc.params["T"]) is int
     np.testing.assert_allclose(enc.encode(X, D).numpy(),

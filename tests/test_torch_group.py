@@ -87,7 +87,8 @@ def test_group_omp_scan_matches_jax_and_oracle(rng, case):
     p, K, groups, T, eps, kind = GROUP_CASES[case]
     D, X, _ = make_problem(rng, p=p, K=K, N=24, T=4)
     Df, Xf = D.astype(np.float32), X.astype(np.float32)
-    got = greedy.group_omp(Df, Xf, groups, T=T, eps=eps, fused=False).numpy()
+    got = greedy.group_omp(Df, Xf, groups, T=T, eps=eps, fused=False,
+                           device="cpu").numpy()
     jax_out = np.asarray(jgreedy.group_omp(Df, Xf, groups, T=T, eps=eps,
                                            fused=False))
     ref = oracle.group_omp(D, X, groups, T=T, eps=eps)
@@ -105,7 +106,7 @@ def test_group_omp_scan_matches_jax_and_oracle(rng, case):
     # the compact result holds the same selections as the reference's (once
     # the residual reaches ~1e-7, which group comes next is fp noise)
     res = greedy.group_omp(Df, Xf, groups, T=T, eps=eps, fused=False,
-                           dense=False)
+                           dense=False, device="cpu")
     jres = jgreedy.group_omp(Df, Xf, groups, T=T, eps=eps, fused=False,
                              dense=False)
     if kind != "residual":
@@ -170,7 +171,8 @@ def test_group_fused_reference_matches_scan(rng):
     res = greedy.GreedyResult(idx, gamma, torch.zeros(len(nsel)), nsel * 4)
     np.testing.assert_allclose(
         greedy._scatter_dense(res, D.shape[1]).numpy(),
-        greedy.group_omp(D, X, groups, T, fused=False).numpy(), atol=1e-4)
+        greedy.group_omp(D, X, groups, T, fused=False,
+                         device="cpu").numpy(), atol=1e-4)
 
 
 def test_group_omp_on_cpu_launches_nothing(rng):

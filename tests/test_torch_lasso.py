@@ -168,7 +168,7 @@ def test_feature_sign_matches_jax(sparse, kw):
     D, X = sparse
     lam = 0.15
     want = jl.feature_sign(_j(D), _j(X), lam, full_result=True, **kw)
-    got = lt.feature_sign(D, X, lam, full_result=True, **kw)
+    got = lt.feature_sign(D, X, lam, full_result=True, device="cpu", **kw)
     assert tuple(got.Gamma.shape) == (48, 32)
     _assert_solution_close(D, X, got.Gamma.numpy(), np.asarray(want.Gamma),
                            lam)
@@ -191,7 +191,7 @@ def test_feature_sign_compact_stragglers_matches_jax(monkeypatch):
     monkeypatch.setattr(tl, "_gather_lanes",
                         lambda *a: gathers.append(1) or real(*a))
     got = lt.feature_sign(D, X, lam, max_iter=48, compact_stragglers=True,
-                          warm_start=0, full_result=True)
+                          warm_start=0, full_result=True, device="cpu")
     assert gathers
     want = jl.feature_sign(_j(D), _j(X), lam, max_iter=48,
                            compact_stragglers=True, warm_start=0,
@@ -211,11 +211,12 @@ def test_feature_sign_auto_capacity_resolves_overflow():
     D, X = D.astype(np.float32), X.astype(np.float32)
     lam = 0.01
     narrow = lt.feature_sign(D, X, lam, max_active=16, polish=False,
-                             full_result=True)
+                             full_result=True, device="cpu")
     assert bool(narrow.overflow.any())
     want = jl.feature_sign(_j(D), _j(X), lam, auto_capacity=True,
                            full_result=True)
-    got = lt.feature_sign(D, X, lam, auto_capacity=True, full_result=True)
+    got = lt.feature_sign(D, X, lam, auto_capacity=True, full_result=True,
+                          device="cpu")
     _assert_solution_close(D, X, got.Gamma.numpy(), np.asarray(want.Gamma),
                            lam)
     np.testing.assert_array_equal(got.done.numpy(), np.asarray(want.done))
@@ -227,7 +228,7 @@ def test_feature_sign_zero_solution(sparse):
     D, X = sparse
     lam = 1e3      # lam > 2 max |D^T x|: g = 0 is optimal
     want = jl.feature_sign(_j(D), _j(X), lam, full_result=True)
-    got = lt.feature_sign(D, X, lam, full_result=True)
+    got = lt.feature_sign(D, X, lam, full_result=True, device="cpu")
     assert bool((got.Gamma == 0).all())
     assert (np.asarray(want.Gamma) == 0).all()
     np.testing.assert_array_equal(got.done.numpy(), np.asarray(want.done))
@@ -236,7 +237,7 @@ def test_feature_sign_zero_solution(sparse):
 def test_feature_sign_matches_oracle():
     D, X, _ = make_problem(np.random.default_rng(0), p=16, K=32, N=24, T=3)
     lam = 0.2
-    got = lt.lasso(D, X, lam).numpy()
+    got = lt.lasso(D, X, lam, device="cpu").numpy()
     _assert_solution_close(D, X, got, oracle.lasso(D, X, lam), lam)
 
 
@@ -246,7 +247,8 @@ def test_feature_sign_kkt_and_host_syncs(sparse):
     D, X = sparse
     lam = 0.15
     before = tl.host_syncs()
-    res = lt.feature_sign(D, X, lam, warm_start=0, full_result=True)
+    res = lt.feature_sign(D, X, lam, warm_start=0, full_result=True,
+                          device="cpu")
     assert tl.host_syncs() > before
     assert bool(res.done.all()) and not bool(res.overflow.any())
     G = res.Gamma.numpy().astype(np.float64)
@@ -259,18 +261,18 @@ def test_feature_sign_kkt_and_host_syncs(sparse):
 def test_feature_sign_rejects_bad_arguments(sparse):
     D, X = sparse
     with pytest.raises(ValueError, match="max_iter"):
-        lt.feature_sign(D, X, 0.15, max_iter=0)
+        lt.feature_sign(D, X, 0.15, max_iter=0, device="cpu")
     with pytest.raises(ValueError, match="cold_backend"):
-        lt.feature_sign(D, X, 0.15, cold_backend="mosaic")
+        lt.feature_sign(D, X, 0.15, cold_backend="mosaic", device="cpu")
     with pytest.raises(ValueError, match="warm_seed"):
-        lt.feature_sign(D, X, 0.15, warm_seed="lars")
+        lt.feature_sign(D, X, 0.15, warm_seed="lars", device="cpu")
 
 
 @pytest.mark.parametrize("n_iter", [50, 200])
 def test_fista_matches_jax(sparse, n_iter):
     D, X = sparse
     want = np.asarray(jl.fista(_j(D), _j(X), 0.15, n_iter=n_iter))
-    got = lt.fista(D, X, 0.15, n_iter=n_iter)
+    got = lt.fista(D, X, 0.15, n_iter=n_iter, device="cpu")
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
@@ -295,7 +297,8 @@ def test_encoder_convex_routes_match_jax(tiny, alg, block, N):
     D, X = tiny
     X = X[:, :N]
     params = {"lam": 0.2}
-    got = lt.SparseEncoder(alg, params, block=block).encode(X, D).numpy()
+    got = lt.SparseEncoder(alg, params, block=block,
+                           device="cpu").encode(X, D).numpy()
     want = np.asarray(jlt.SparseEncoder(alg, params, block=block).encode(
         X, D))
     assert got.shape == (32, N)
@@ -311,7 +314,7 @@ def test_encoder_from_reference_lasso(tiny):
         "lasso", {"lam": np.float32(0.2), "cold_unroll": np.int64(4),
                   "cold_backend": "xla", "max_active": 16}, block=16)
     enc = encoder_from_reference(ref.algorithm, ref.params, block=ref.block,
-                                 check_atoms=ref.check_atoms)
+                                 check_atoms=ref.check_atoms, device="cpu")
     assert type(enc.params["lam"]) is float
     assert type(enc.params["cold_unroll"]) is int
     _assert_solution_close(D, X, enc.encode(X, D).numpy(),

@@ -105,13 +105,15 @@ def test_batch_omp_impl_matches_jax(rng, eps_mode):
 @pytest.mark.parametrize("eps", [None, 0.05])
 def test_batch_omp_supports_match_oracle(rng, refresh, eps):
     D, X = _f32(rng, p=16, K=48, N=64, T=3)
-    got = greedy.batch_omp(D, X, 5, eps, refresh=refresh).numpy()
+    got = greedy.batch_omp(D, X, 5, eps, refresh=refresh,
+                           device="cpu").numpy()
     want = oracle.batch_omp(D.astype(np.float64), X.astype(np.float64), 5,
                             eps)
     np.testing.assert_array_equal(got != 0, want != 0)
     np.testing.assert_allclose(got, want, atol=1e-4)
     # omp is the residual form of the same pursuit
-    np.testing.assert_allclose(greedy.omp(D, X, 5, eps).numpy(), got,
+    np.testing.assert_allclose(greedy.omp(D, X, 5, eps,
+                                          device="cpu").numpy(), got,
                                atol=1e-4)
 
 
@@ -194,7 +196,7 @@ def test_kernel_library_named_by_source_hash():
     # built only on first use, never at import: nothing here needs nvcc
     names = sorted(p.name for p in _build.sources())
     assert names == ["errors.cu", "fs_cold.cu", "fused_patches.cu",
-                     "group_omp.cu", "omp_fused.cu"]
+                     "group_omp.cu", "omp_fused.cu", "select.cu"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()
@@ -214,7 +216,8 @@ def test_corr_dtype_bf16_matches_jax(rng, route):
         from lyssandra_tpu_torch import SparseEncoder
         import lyssandra_tpu as jlt
 
-        got = SparseEncoder("bomp", {"T": 8, **kw}).encode(X, D).numpy()
+        got = SparseEncoder("bomp", {"T": 8, **kw},
+                            device="cpu").encode(X, D).numpy()
         want = np.asarray(jlt.SparseEncoder("bomp", {"T": 8, **kw}).encode(
             X, D))
     else:

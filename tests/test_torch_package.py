@@ -73,17 +73,19 @@ def test_launch_counters_stay_zero_on_cpu(rng):
     lt.reset_launch_counts()
     img = 255.0 * rng.random((24, 24))
     noisy = img + 20.0 * rng.standard_normal(img.shape)
-    lt.denoise(noisy, lt.dct_dictionary(8, 64), 20.0,
+    lt.denoise(noisy, lt.dct_dictionary(8, 64, device="cpu"), 20.0,
                cfg=lt.DenoiseConfig(sigma=20.0, T_max=12))
-    D = lt.dct_dictionary(4, 36)
+    D = lt.dct_dictionary(4, 36, device="cpu")
     lt.batch_omp(D, torch.randn(16, 40), 3)
     lt.group_omp(D, torch.randn(16, 40), np.repeat(np.arange(9), 4), 2)
     lt.SparseEncoder("lasso", {"lam": 0.2, "cold_unroll": 3,
                                "cold_backend": "pallas"}).encode(
         torch.randn(16, 40), D)
+    lt.solvers.greedy._omp_impl(D, torch.randn(16, 40), 0.0, T=3,
+                                eps_mode=False, fused_select=True)
     assert lt.launch_counts() == {
         "omp_fused_t": 0, "omp_fused_eps": 0, "fused_patches": 0,
-        "group_omp_fused": 0, "fs_cold": 0}
+        "group_omp_fused": 0, "fs_cold": 0, "select_abs_argmax": 0}
 
 
 def test_dictionary_from_numpy_checks(rng):
@@ -91,26 +93,27 @@ def test_dictionary_from_numpy_checks(rng):
     D /= np.linalg.norm(D, axis=0)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        t = dictionary_from_numpy(D)
+        t = dictionary_from_numpy(D, device="cpu")
     assert t.dtype == torch.float32 and t.is_contiguous()
     np.testing.assert_allclose(t.numpy(), D, atol=1e-7)
-    assert dictionary_from_numpy(D.T.copy().T).is_contiguous()
+    assert dictionary_from_numpy(D.T.copy().T, "cpu").is_contiguous()
     with pytest.warns(UserWarning, match="unit-norm"):
-        dictionary_from_numpy(2.0 * D)
+        dictionary_from_numpy(2.0 * D, "cpu")
     with pytest.raises(ValueError):
-        dictionary_from_numpy(D[0])
+        dictionary_from_numpy(D[0], "cpu")
     with pytest.raises(TypeError):
-        dictionary_from_numpy(np.ones((4, 4), np.int32))
+        dictionary_from_numpy(np.ones((4, 4), np.int32), "cpu")
     bad = D.copy()
     bad[0, 0] = np.nan
     with pytest.raises(ValueError):
-        dictionary_from_numpy(bad)
+        dictionary_from_numpy(bad, "cpu")
 
 
 def test_denoiser_from_reference_takes_reference_config():
     cfg = JDenoiseConfig(sigma=15.0, T_max=12, order="energy")
-    den = denoiser_from_reference(np.asarray(lt.dct_dictionary(8, 64)),
-                                  dataclasses.asdict(cfg))
+    den = denoiser_from_reference(
+        np.asarray(lt.dct_dictionary(8, 64, device="cpu")),
+        dataclasses.asdict(cfg), device="cpu")
     assert dataclasses.asdict(den.cfg) == dataclasses.asdict(cfg)
     with pytest.raises(TypeError):
-        denoiser_from_reference(np.eye(64), {"not_a_field": 1})
+        denoiser_from_reference(np.eye(64), {"not_a_field": 1}, "cpu")

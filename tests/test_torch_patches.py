@@ -120,11 +120,11 @@ def test_fused_pipeline_plain_ops_route(rng, shape, stride):
 
 @pytest.mark.parametrize("p,K", [(8, 64), (8, 256), (5, 49)])
 def test_dct_dictionary_matches_reference(p, K):
-    D = dictionaries.dct_dictionary(p, K)
+    D = dictionaries.dct_dictionary(p, K, device="cpu")
     assert D.dtype == torch.float32 and tuple(D.shape) == (p * p, K)
     np.testing.assert_allclose(_np(D), np.asarray(jdict.dct_dictionary(p, K)),
                                atol=1e-6)
-    Dc = dictionaries.dct_dictionary_color(p, K)
+    Dc = dictionaries.dct_dictionary_color(p, K, device="cpu")
     np.testing.assert_allclose(
         _np(Dc), np.asarray(jdict.dct_dictionary_color(p, K)), atol=1e-6)
 

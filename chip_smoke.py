@@ -83,7 +83,9 @@ Phases, in order; any failure raises and exits non-zero:
      seconds;
 then one JSON line of per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
-of their type, counted from this run's data) and, last, the result line.
+of their type, counted from this run's data for the cheapest form of the
+function, the Gram form for the greedy kernels) and, last, the result
+line.
 Nothing runs on the CPU when there is no GPU.
 """
 
@@ -197,17 +199,35 @@ def bound_ms(nbytes, flops, peak_flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def omp_flops(torch, p, K, nsel):
-    """Operations of the fused OMP over lanes that ran nsel[n] steps: per
-    step t the correlation (2pK), d_k.x (2p), the Gram row (2pt), the
-    factor row (2t^2), the two triangular solves (2(t+1)^2), the residual
-    (2p(t+1)) and its norm (2p); ||x||^2 (2p) once per lane."""
+def distinct_atoms(torch, idx, mask):
+    """The number of distinct atoms in idx where mask holds."""
+    return int(torch.unique(idx[mask]).numel())
+
+
+def gram_omp_flops(torch, p, K, nsel, n_atoms, gs=1):
+    """Operations of (group) OMP in its cheapest form at these shapes, the
+    Gram form of Batch-OMP (alpha = alpha0 - G_I gamma_I), over lanes that
+    selected nsel[n] atoms (gs = 1) or groups of gs atoms: the Gram
+    columns of the n_atoms distinct atoms any lane selected (2pK each);
+    ||x||^2 per lane (2p), and alpha0 = D^T x (2pK) per lane that runs a
+    step; at step s, with n = gs (s - 1) atoms in the support, the
+    correlation update (2Kn), the scores and their argmax (K for single
+    atoms; 2K + K/gs for the group norms), the factor's new block
+    (gs n^2 for its triangular solves, 2 gs^2 n for the Schur complement,
+    gs^3 / 3 for its Cholesky), the two solves for gamma (2 (n + gs)^2)
+    and the error from the normal equations (2 (n + gs))."""
     counts = torch.bincount(nsel.long().flatten()).tolist()
-    total = 0
+    score = K if gs == 1 else 2 * K + K // gs
+    total = 2 * p * K * n_atoms + 2 * p * sum(counts)
     for m, c in enumerate(counts):
-        total += c * (2 * p + sum(
-            2 * p * K + 2 * p + 2 * p * t + 2 * t * t + 2 * (t + 1) ** 2
-            + 2 * p * (t + 1) + 2 * p for t in range(m)))
+        if m == 0:
+            continue
+        lane = 2 * p * K
+        for s in range(1, m + 1):
+            n = gs * (s - 1)
+            lane += (2 * K * n + score + gs * n * n + 2 * gs * gs * n
+                     + gs ** 3 / 3 + 2 * (n + gs) ** 2 + 2 * (n + gs))
+        total += c * lane
     return total
 
 
@@ -268,6 +288,7 @@ def main():
     )
     from lyssandra_tpu_torch.ops.cuda_select import (
         select_abs_argmax, select_abs_argmax_reference,
+        smem_bytes as select_smem_bytes,
     )
     from lyssandra_tpu_torch.ops.patches import weighted_reconstruct
     from lyssandra_tpu_torch.solvers.greedy import GreedyResult, _omp_impl
@@ -334,8 +355,11 @@ def main():
     check(agree >= 0.999, f"K1 Gaussian idx agreement {agree}")
     print(f"K1 Gaussian N={Xb.shape[1]}: idx agree on {agree:.6f} of lanes")
     NB = Xb.shape[1]
+    sel = torch.arange(T, device=dev)[None, :] < got[3][:, None]
     k1_bound = bound_ms(4 * (P * NB + P * K + 2 * NB * T + 2 * NB),
-                        omp_flops(torch, P, K, got[3]), PEAK_F32)
+                        gram_omp_flops(torch, P, K, got[3],
+                                       distinct_atoms(torch, got[0], sel)),
+                        PEAK_F32)
     k1_ms = cuda_ms(torch, lambda: omp_fused(Db, Xb, T=T))
     k1_plain_ms = cuda_ms(torch, lambda: omp_fused_reference(Db, Xb, T=T))
     del got, want
@@ -359,8 +383,11 @@ def main():
           f"nsel {float(got[3].float().mean()):.3f}; max |dgamma| on "
           f"agreeing lanes {k2_err:.3g}")
     NP = Xc.shape[1]
+    sel = torch.arange(10, device=dev)[None, :] < got[3][:, None]
     k2_bound = bound_ms(4 * (P * NP + P * 256 + 2 * NP * 10 + 2 * NP),
-                        omp_flops(torch, P, 256, got[3]), PEAK_F32)
+                        gram_omp_flops(torch, P, 256, got[3],
+                                       distinct_atoms(torch, got[0], sel)),
+                        PEAK_F32)
     k2_ms = cuda_ms(torch, lambda: omp_fused(
         Dd, Xc, T=10, eps=eps, eps_mode=True))
     k2_plain_ms = cuda_ms(torch, lambda: omp_fused_reference(
@@ -468,11 +495,14 @@ def main():
     Xk4 = Xb[:, :32768].contiguous()
     got, _ = group_case(Db, Xk4, groups, T_GROUP, "K4 Gaussian N=32768",
                         agree_min=0.999)
-    # per lane and step: the correlation (2pK), the group scores (2K), the
-    # block's Gram rows and residual update (4 p gs (t+1))
-    k4_flops = sum(
-        c * sum(2 * P * K + 2 * K + 4 * P * GS * (t + 1) for t in range(m))
-        for m, c in enumerate(torch.bincount(got[3].long()).tolist()))
+    # the Gram form over groups, plus the final solve's two refinement
+    # rounds (a Gram residual and two triangular solves each, 8 n^2 for
+    # n = nsel gs slots)
+    sel = (torch.arange(T_GROUP * GS, device=dev)[None, :]
+           < GS * got[3][:, None])
+    k4_flops = gram_omp_flops(torch, P, K, got[3],
+                              distinct_atoms(torch, got[0], sel), gs=GS)
+    k4_flops += 8 * GS * GS * float((got[3].double() ** 2).sum())
     k4_bound = bound_ms(
         4 * (P * 32768 + P * K + 32768 * (T_GROUP * GS + T_GROUP + 2)),
         k4_flops, PEAK_F32)
@@ -606,19 +636,29 @@ def main():
     print(f"K6 p={P4} K={K4} Tun={TUN}: N=2048 kernel {k6_ms:.3f} ms, plain "
           f"{k6_plain_ms:.3f} ms; N={N4} kernel {k6_ms_all:.3f} ms, plain "
           f"{k6_plain_ms_all:.3f} ms")
-    # the steps the lanes ran at N=2048: a lane runs step t while it is not
+    # The operations the lanes' steps need at N=2048, in the cheapest form
+    # at this shape, the Gram form: A0 = X^T D and the done test (2pK + K)
+    # per lane; the Gram columns of the distinct atoms activated (2pK
+    # each); per step that a lane runs, with a active atoms after it, the
+    # violator search (K), the gradient over the active set and its KKT
+    # test (2Ka + 2K) and two refinements of CG on the (a, a) system, each
+    # at least a + 2 products of 2a^2.  A lane runs step t while it is not
     # done after t steps, and the cold start at depth t is the first t
-    # steps of the run at depth TUN
+    # steps of the run at depth TUN.
     n6 = Xb4.shape[1]
-    notdone = [int((2.0 * (Xb4.T @ Dc4).abs() > LAM + 1e-12).any(dim=1).sum())]
-    for t in range(1, TUN):
-        notdone.append(int((~fs_cold_fused(Dc4, Xb4, lam=LAM,
-                                           t_unroll=t)[5]).sum()))
-    # A0 and one gradient per step (2pK each) dominate the operations;
+    done6 = (2.0 * (Xb4.T @ Dc4).abs() <= LAM + 1e-12).all(dim=1)
+    k6_flops, k6_steps = (2 * P4 * K4 + K4) * n6, 0
+    for t in range(1, TUN + 1):
+        st = fs_cold_fused(Dc4, Xb4, lam=LAM, t_unroll=t)
+        a = st[1][~done6].sum(dim=1).double()
+        k6_flops += float((2 * K4 * a + 3 * K4 + 4 * (a + 2) * a * a).sum())
+        k6_steps += a.numel()
+        done6 = st[5]
+    k6_flops += 2 * P4 * K4 * int(torch.unique(st[0]).numel())
     # outputs: idx, mask, theta, gact (13 bytes a slot), gr, done
     k6_bound = bound_ms(4 * (P4 * n6 + P4 * K4 + n6 * K4) + 13 * n6 * TUN + n6,
-                        2 * P4 * K4 * (n6 + sum(notdone)), PEAK_F32)
-    print(f"K6 N=2048: {sum(notdone) / n6:.3f} steps per lane on average; "
+                        k6_flops, PEAK_F32)
+    print(f"K6 N=2048: {k6_steps / n6:.3f} steps per lane on average; "
           f"bound {k6_bound[0]:.4f} ms ({k6_bound[1]})")
 
     # --- 5e. K7 against its plain version, then its envelope
@@ -668,6 +708,11 @@ def main():
         select_case(dt(rng.standard_normal((N_, p_)).astype(np.float32)),
                     dt(D_.astype(np.float32)),
                     f"envelope p={p_} K={K_} N={N_}")
+    lib = _build.load()
+    for p_ in (5, 64, 512):
+        check(lib.lyssa_select_smem_bytes(p_) == select_smem_bytes(p_),
+              f"K7 shared memory at p={p_}: the kernel and kernel_supports "
+              f"disagree")
     try:
         select_abs_argmax(torch.zeros((64, 513), device=dev),
                           torch.zeros((513, 128), device=dev))
@@ -1006,6 +1051,11 @@ def main():
         print(f"{what} encoder (blocks of {enc.block}) p={P} K={K} "
               f"N={N_SWEEP}: {ms:.3f} ms = {N_SWEEP / ms * 1e3:.1f} "
               f"patches/s")
+    for unroll in (False, True):
+        ms = cuda_ms(torch, lambda: lt.nn_omp(Ds, blk, T, dense=False,
+                                              unroll=unroll), reps=3)
+        print(f"nn_omp unroll={unroll} one block N={blk.shape[1]}: "
+              f"{ms:.3f} ms = {blk.shape[1] / ms * 1e3:.1f} patches/s")
     inp_ms = cuda_ms(torch, lambda: inpaint(corrupted, mask, Dd, T=8),
                      reps=3)
     print(f"inpaint {IMG_SIZE}^2 K=256 T=8 ({NP} patches): "

@@ -134,6 +134,8 @@ def load() -> ctypes.CDLL:
     lib.lyssa_error_string.restype = ctypes.c_char_p
     lib.lyssa_fused_patches_whiten_smem.argtypes = [ctypes.c_int]
     lib.lyssa_fused_patches_whiten_smem.restype = ctypes.c_size_t
+    lib.lyssa_select_smem_bytes.argtypes = [ctypes.c_int]
+    lib.lyssa_select_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 

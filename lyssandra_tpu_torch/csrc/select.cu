@@ -177,6 +177,10 @@ cudaError_t launch(const float* r, const float* D, int p, int K, int N,
 
 }  // namespace
 
+// The dynamic shared memory one block takes at signal length p (what
+// ops/cuda_select.py::smem_bytes must agree with).
+extern "C" size_t lyssa_select_smem_bytes(int p) { return smem_bytes(p); }
+
 // r (N, p) and D (p, K) row-major float32; k_out (N,) int32.  bf16 != 0
 // rounds both operands to bfloat16.  Returns cudaGetLastError() after the
 // launch.

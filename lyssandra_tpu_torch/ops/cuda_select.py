@@ -35,7 +35,9 @@ def select_abs_argmax_reference(r: torch.Tensor, D: torch.Tensor, *,
 def smem_bytes(p: int) -> int:
     """Shared memory one block of the kernel holds: its 64 rows of r
     (transposed, p padded to 16, rows of 68 floats) and one 16 x 64 tile
-    of D."""
+    of D.  The kernel library's ``lyssa_select_smem_bytes`` computes the
+    same from the kernel's own constants; ``chip_smoke.py`` compares the
+    two."""
     pp = -(-p // _BP) * _BP
     return 4 * (pp * (_BM + 4) + _BP * _BN)
 

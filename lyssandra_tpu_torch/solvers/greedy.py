@@ -187,7 +187,7 @@ def _select_supported(D: torch.Tensor, X: torch.Tensor) -> bool:
 
 
 def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32",
-              fused_select=False):
+              fused_select=False, M=None):
     """Explicit-residual OMP (oracle.omp): correlations from
     r = x - D_I gamma.  In eps mode a lane is done once its residual
     reaches the target, and the whole loop ends once every lane is done
@@ -200,25 +200,52 @@ def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32",
     fused_select=True: each step's selection is one launch of the fused
     selection kernel (``ops/cuda_select.py``), which never writes the
     (N, K) correlation; on CPU tensors its wrapper runs the same ops as
-    the unfused selection.  Off by default, as in the reference."""
+    the unfused selection.  Off by default, as in the reference.
+
+    M (p, N) 0/1 observation mask: masked OMP (oracle.masked_omp) over
+    each lane's observed coordinates, in float32 with the plain selection.
+    It codes M o x over the masked atoms M o d_k, selecting by
+    |d^T r| / ||M o d_k|| (the residual is masked by construction, so the
+    product needs no mask); an atom whose masked norm is <= 1e-6 scores -1
+    and is never picked over a valid one.  The factor is built over the
+    unit-normalised masked atoms, and the codes are rescaled to the
+    unnormalised ones at the end."""
     _check_corr_dtype(corr_dtype)
     p, K = D.shape
     N = X.shape[1]
     dev, dt = D.device, D.dtype
     Xt = X.T                                   # (N, p)
     Dt = D.T
-    if fused_select and _select_supported(D, X):
-        # imported here: ops/cuda_omp.py imports this module
-        from lyssandra_tpu_torch.ops.cuda_select import select_abs_argmax
+    if M is not None:
+        Mt = M.T.to(dt)
+        Xt = Xt * Mt                           # observed coordinates only
+        nrm = torch.sqrt((Mt @ (D * D)).clamp_min(0.0))      # (N, K)
+        invalid = nrm <= 1e-6
 
         def select(r):
-            return select_abs_argmax(r, D, bf16=corr_dtype == "bf16")
+            return _argmax_first(torch.where(
+                invalid, -1.0, (r @ D).abs() / nrm.clamp_min(1e-6)))
+
+        def atom(k):
+            nk = nrm.gather(1, k.long()[:, None])[:, 0]
+            return (Dt[k.long()] * Mt / nk.clamp_min(1e-6)[:, None],
+                    nk <= 1e-6)
     else:
-        D_sel = D.bfloat16().float() if corr_dtype == "bf16" else D
+        if fused_select and _select_supported(D, X):
+            # imported here: ops/cuda_omp.py imports this module
+            from lyssandra_tpu_torch.ops.cuda_select import select_abs_argmax
 
-        def select(r):
-            r_sel = r.bfloat16().float() if corr_dtype == "bf16" else r
-            return _argmax_abs(r_sel @ D_sel)
+            def select(r):
+                return select_abs_argmax(r, D, bf16=corr_dtype == "bf16")
+        else:
+            D_sel = D.bfloat16().float() if corr_dtype == "bf16" else D
+
+            def select(r):
+                r_sel = r.bfloat16().float() if corr_dtype == "bf16" else r
+                return _argmax_abs(r_sel @ D_sel)
+
+        def atom(k):
+            return Dt[k.long()], False
     xnormsq = (Xt * Xt).sum(dim=1)
     r = Xt
     Dsel = torch.zeros((N, T, p), dtype=dt, device=dev)
@@ -233,10 +260,10 @@ def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32",
         if eps_mode and bool(done.all()):
             break
         k = select(r)
-        dk = Dt[k.long()]                                    # (N, p)
+        dk, bad_atom = atom(k)                               # (N, p)
         g = torch.einsum("ntp,np->nt", Dsel, dk)
         Linv_n, nu = _append_cholesky_inv(Linv, g, t)
-        bad = nu <= 1e-6
+        bad = (nu <= 1e-6) | bad_atom
         Dsel_n = Dsel.clone()
         Dsel_n[:, t] = dk
         idx_n = idx.clone()
@@ -256,6 +283,8 @@ def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32",
         nsel = torch.where(frozen, nsel, nsel + 1)
         done = frozen | (err <= eps * eps) if eps_mode else frozen
     gamma = _solve_gamma(Linv, a0sel)
+    if M is not None:
+        gamma = gamma / nrm.gather(1, idx.long()).clamp_min(1e-6)
     valid = torch.arange(T, device=dev)[None, :] < nsel[:, None]
     return GreedyResult(idx, torch.where(valid, gamma, 0.0), err, nsel)
 
@@ -576,71 +605,6 @@ def threshold_code(D, X, lam: float, kind: str = "soft", *, device=None):
     return A * (A.abs() > lam)
 
 
-def _masked_omp_impl(D, X, M, eps, *, T, eps_mode):
-    """OMP over each lane's observed coordinates (oracle.masked_omp): codes
-    M o x over the masked atoms M o d_k, selecting by |d^T r| / ||M o d_k||.
-
-    The residual is masked by construction (x' and every selected atom
-    are), so the correlation product needs no mask.  An atom whose masked
-    norm is <= 1e-6 scores -1 and is never picked over a valid one.  The
-    factor is built over unit-normalised masked atoms; the codes are
-    rescaled to the unnormalised ones at the end.  The loop ends early in
-    eps mode as ``_omp_impl``'s does."""
-    N = X.shape[1]
-    p = D.shape[0]
-    dev, dt = D.device, D.dtype
-    Mt = M.T.to(dt)                            # (N, p)
-    Xt = X.T * Mt                              # observed coordinates only
-    Dt = D.T
-    nrm = torch.sqrt((Mt @ (D * D)).clamp_min(0.0))          # (N, K)
-    invalid = nrm <= 1e-6
-    xnormsq = (Xt * Xt).sum(dim=1)
-    r = Xt
-    Dsel = torch.zeros((N, T, p), dtype=dt, device=dev)
-    Linv = torch.zeros((N, T, T), dtype=dt, device=dev)
-    idx = torch.zeros((N, T), dtype=torch.int32, device=dev)
-    a0sel = torch.zeros((N, T), dtype=dt, device=dev)
-    err = xnormsq
-    nsel = torch.zeros((N,), dtype=torch.int32, device=dev)
-    done = xnormsq <= eps * eps if eps_mode else \
-        torch.zeros((N,), dtype=torch.bool, device=dev)
-    for t in range(T):
-        if eps_mode and bool(done.all()):
-            break
-        score = torch.where(invalid, -1.0,
-                            (r @ D).abs() / nrm.clamp_min(1e-6))
-        k = _argmax_first(score)
-        dk = Dt[k.long()] * Mt                               # masked atom
-        nk = nrm.gather(1, k.long()[:, None])                # (N, 1)
-        g = torch.einsum("ntp,np->nt", Dsel, dk)
-        Linv_n, nu = _append_cholesky_inv(Linv, g / nk.clamp_min(1e-6), t)
-        nk = nk[:, 0]
-        bad = (nu <= 1e-6) | (nk <= 1e-6)
-        dkn = dk / nk.clamp_min(1e-6)[:, None]
-        Dsel_n = Dsel.clone()
-        Dsel_n[:, t] = dkn
-        idx_n = idx.clone()
-        idx_n[:, t] = k
-        a0sel_n = a0sel.clone()
-        a0sel_n[:, t] = (dkn * Xt).sum(dim=1)
-        gamma = _solve_gamma(Linv_n, a0sel_n)
-        r_n = Xt - torch.einsum("nt,ntp->np", gamma, Dsel_n)
-        err_n = (r_n * r_n).sum(dim=1)
-        frozen = done | bad
-        r = _freeze(frozen, r_n, r)
-        Dsel = _freeze(frozen, Dsel_n, Dsel)
-        Linv = _freeze(frozen, Linv_n, Linv)
-        idx = _freeze(frozen, idx_n, idx)
-        a0sel = _freeze(frozen, a0sel_n, a0sel)
-        err = _freeze(frozen, err_n, err)
-        nsel = torch.where(frozen, nsel, nsel + 1)
-        done = frozen | (err <= eps * eps) if eps_mode else frozen
-    gamma = _solve_gamma(Linv, a0sel) \
-        / nrm.gather(1, idx.long()).clamp_min(1e-6)
-    valid = torch.arange(T, device=dev)[None, :] < nsel[:, None]
-    return GreedyResult(idx, torch.where(valid, gamma, 0.0), err, nsel)
-
-
 def masked_omp(D, X, M, T: int, eps: float | None = None, *,
                dense: bool = True, device=None):
     """Masked (inpainting) OMP: each lane's pursuit over its observed
@@ -651,8 +615,8 @@ def masked_omp(D, X, M, T: int, eps: float | None = None, *,
     D = _as_f32(D, device)
     X = _as_f32(X, device)
     M = _as_f32(M, device)
-    res = _masked_omp_impl(D, X, M, 0.0 if eps is None else float(eps), T=T,
-                           eps_mode=eps is not None)
+    res = _omp_impl(D, X, 0.0 if eps is None else float(eps), T=T,
+                    eps_mode=eps is not None, M=M)
     return res.dense(D.shape[1]) if dense else res
 
 

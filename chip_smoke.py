@@ -20,6 +20,13 @@ Phases, in order; any failure raises and exits non-zero:
      32; p=512 and T=32, whose shared memory needs the opt-in above 48 KB;
      lanes done on entry; whitening at p=5): the same checks, and a T the
      kernel cannot hold must raise;
+  5g. the product kernel C = A^T B (csrc/gram.cu, which alpha0 = X^T D
+     and G = D^T D of the Gram-form K4 and K6 come from; run before 5c
+     and 5d) against A.T @ B at K4's shapes (p=64: alpha0 of a 16,384-lane
+     block over K=1024, Gp), K6's (p=192: alpha0 of a 2,048-lane block, G)
+     and ragged edges (p=21, M=500, K=100; p=512, M=1000, K=130): every
+     entry within twice the float32 dot-product bound, 2 gamma_p ||a_i||
+     ||b_j||; and its time at those main-path shapes;
   5c. K4/K5 (fused group OMP) against its plain version at the group
      shape p=64, K=1024, gs=4 (256 groups), T=4, N=32768: a well-posed
      group-sparse problem (group ids, nsel, idx equal, gamma within 1e-4),
@@ -38,7 +45,8 @@ Phases, in order; any failure raises and exits non-zero:
      same share of lanes done at the handoff (within 0.005); then its
      envelope (p=21, K=100; a coherent pair; lam=1e3, where every lane is
      done on entry and the state is zero; a Tun beyond the kernel, which
-     must raise) and its time at N=2048 and N=16384, and the steps its
+     must raise) and its time at N=2048 and N=16384 (K4's and K6's times
+     are the wrappers', product launches included), and the steps its
      lanes run (for its bound);
   5e. K7 (fused selection) against its plain version at p=64, K=1024 on
      the 262,144 Gaussian lanes, f32 and bf16: picks equal on >= 99.9% of
@@ -50,13 +58,14 @@ Phases, in order; any failure raises and exits non-zero:
      T=8, N=262144) through lyssandra_tpu_torch.batch_omp and the
      sigma=25 denoise of the 512x512 image through Denoiser; (b)
      SparseEncoder("group_omp", T=4, 256 groups of 4) on the 262,144
-     Batch-OMP signals, 16 blocks of 16384 = 16 group-kernel launches,
-     idx agreeing with the plain version on >= 99.9% of lanes; (c)
+     Batch-OMP signals, 16 blocks of 16384 = 16 group-kernel launches and
+     32 product launches (alpha0 and Gp per block), idx agreeing with the
+     plain version on >= 99.9% of lanes; (c)
      SparseEncoder("bomp", T=8) on the same signals, equal to batch_omp;
      (d) SparseEncoder("lasso", lam=0.15) on config 4's 16,384 patches,
-     8 blocks of 2048 = 8 K6 launches, per-lane objectives within rtol
-     1e-4, atol 1e-5 (tests/test_lasso.py's) of cold_backend="xla", the
-     plain path, on >= 99.9% of lanes and within rtol 1e-3 on all, and
+     8 blocks of 2048 = 8 K6 launches and 16 product launches, per-lane
+     objectives within rtol 1e-4, atol 1e-5 (tests/test_lasso.py's) of
+     cold_backend="xla", the plain path, on >= 99.9% of lanes and within rtol 1e-3 on all, and
      the KKT conditions of tests/test_lasso.py on every lane; (e)
      greedy._omp_impl(fused_select=True) on the 262,144 Batch-OMP signals
      (8 K7 launches), idx agreeing with fused_select=False on >= 99.9% of
@@ -277,6 +286,7 @@ def main():
     from lyssandra_tpu_torch.ops.cuda_fs import (
         fs_cold_fused, fs_cold_fused_reference,
     )
+    from lyssandra_tpu_torch.ops.cuda_gram import gram, gram_reference
     from lyssandra_tpu_torch.ops.cuda_group import (
         group_omp_fused, group_omp_fused_reference,
     )
@@ -467,6 +477,57 @@ def main():
         check(max(errs) <= 1e-4, f"K3 33x47 p={p} {sorted(kw)}: {errs}")
         print(f"K3 33x47 p={p} {sorted(kw)}: max |d| = {errs}")
 
+    # --- 5g. the product kernel against A.T @ B (K4 and K6 start from it)
+    def gram_case(A, B, what):
+        got = gram(A, B)
+        want = gram_reference(A, B)
+        torch.cuda.synchronize()
+        p_ = A.shape[0]
+        u = 2.0 ** -24
+        gamma_p = p_ * u / (1.0 - p_ * u)
+        scale = torch.outer(A.double().norm(dim=0), B.double().norm(dim=0))
+        err = (got.double() - want.double()).abs()
+        rel = float((err / scale.clamp_min(1e-30)).max())
+        check(tuple(got.shape) == (A.shape[1], B.shape[1])
+              and bool((err <= 2.0 * gamma_p * scale).all()),
+              f"gram {what}: max error {float(err.max())}, relative to "
+              f"||a_i|| ||b_j|| {rel} (limit {2.0 * gamma_p})")
+        print(f"gram {what}: max |dC| {float(err.max()):.3g}, relative to "
+              f"||a_i|| ||b_j|| {rel:.3g} (limit {2.0 * gamma_p:.3g})")
+        return float(err.max()), rel
+
+    rng = np.random.default_rng(9)
+    gram_err = gram_rel = 0.0
+    for p_, M_, K_ in ((21, 500, 100), (512, 1000, 130)):
+        A_ = rng.standard_normal((p_, M_)).astype(np.float32)
+        B_ = rng.standard_normal((p_, K_)).astype(np.float32)
+        e_, r_ = gram_case(dt(A_), dt(B_), f"ragged p={p_} M={M_} K={K_}")
+        gram_err, gram_rel = max(gram_err, e_), max(gram_rel, r_)
+    Dc4, Xc4 = config4_problem()
+    Dc4, Xc4 = dt(Dc4), dt(Xc4)
+    # the slot dictionary of groups of GS consecutive atoms is D itself
+    gram_shapes = (("K4 alpha0", Xb[:, :16384].contiguous(), Db),
+                   ("K4 Gp", Db, Db),
+                   ("K6 alpha0", Xc4[:, :2048].contiguous(), Dc4),
+                   ("K6 G", Dc4, Dc4))
+    gram_times = []
+    for what, A_, B_ in gram_shapes:
+        e_, r_ = gram_case(A_, B_, f"{what} p={A_.shape[0]} M={A_.shape[1]} "
+                           f"K={B_.shape[1]}")
+        gram_err, gram_rel = max(gram_err, e_), max(gram_rel, r_)
+        p_, M_, K_ = A_.shape[0], A_.shape[1], B_.shape[1]
+        ms = cuda_ms(torch, lambda: gram(A_, B_))
+        plain = cuda_ms(torch, lambda: gram_reference(A_, B_))
+        lib_ms = cuda_ms(torch, lambda: torch.mm(A_.t(), B_))
+        bnd = bound_ms(4 * (p_ * M_ + p_ * K_ + M_ * K_), 2 * p_ * M_ * K_,
+                       PEAK_F32)
+        gram_times.append({"shape": what, "p": p_, "M": M_, "K": K_,
+                           "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                           "bound_ms": bnd[0], "bound_by": bnd[1]})
+        print(f"gram {what} p={p_} M={M_} K={K_}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, library {lib_ms:.4f} ms; bound {bnd[0]:.4f} "
+              f"ms ({bnd[1]})")
+
     # --- 5c. K4/K5 against its plain version, then its envelope
     def group_case(D, X, groups, T_, what, agree_min=1.0):
         got = group_omp_fused(D, X, groups, T_)
@@ -580,8 +641,6 @@ def main():
     Dw, Xw = dt(Dw), dt(Xw)
     _, k6_err = fs_case(Dw, Xw, LAM, TUN,
                         "K6 well-posed p=192 K=1024 Tun=28 N=2048")
-    Dc4, Xc4 = config4_problem()
-    Dc4, Xc4 = dt(Dc4), dt(Xc4)
     Xb4 = Xc4[:, :2048]
     got = fs_cold_fused(Dc4, Xb4, lam=LAM, t_unroll=TUN)
     want = fs_cold_fused_reference(Dc4, Xb4, lam=LAM, t_unroll=TUN)
@@ -757,6 +816,9 @@ def main():
     check(launches_g["group_omp_fused"] == n_blocks,
           f"group encoder launched the group kernel "
           f"{launches_g['group_omp_fused']} times, not {n_blocks}")
+    check(launches_g["gram"] == 2 * n_blocks,
+          f"group encoder launched the product kernel "
+          f"{launches_g['gram']} times, not {2 * n_blocks}")
     gwant = group_omp_fused_reference(Db, Xb, groups, T_GROUP)
     check(tuple(gres.idx.shape) == (Xb.shape[1], T_GROUP * GS),
           "group encoder idx shape")
@@ -792,6 +854,9 @@ def main():
     check(launches_d["fs_cold"] == n_blocks,
           f"lasso encoder launched K6 {launches_d['fs_cold']} times, not "
           f"{n_blocks}")
+    check(launches_d["gram"] == 2 * n_blocks,
+          f"lasso encoder launched the product kernel "
+          f"{launches_d['gram']} times, not {2 * n_blocks}")
     check(tuple(G4.shape) == (K4, N4) and bool(torch.isfinite(G4).all()),
           "lasso encoder codes: shape, finite")
     G4x = lt.SparseEncoder("lasso", {"lam": LAM, "cold_backend": "xla"}
@@ -1105,6 +1170,18 @@ def main():
          "bf16_ms": k7_bf16_ms, "bf16_plain_ms": k7_plain_bf16_ms,
          "bf16_max_abs_err": k7_err_bf16, "bf16_bound_ms": k7_bound_bf16[0],
          "bf16_bound_by": k7_bound_bf16[1]},
+        # times at K4's alpha0 shape (a group-encoder block); by_shape has
+        # all four main-path shapes
+        {"name": "gram", "route": "cuda",
+         "source": "lyssandra_tpu_torch/csrc/gram.cu",
+         "replaces": "lyssandra_tpu/ops/pallas_fs.py:53 and "
+                     "lyssandra_tpu/ops/pallas_group.py:52,253 (their D^T x)",
+         "launches": launches_g["gram"] + launches_d["gram"],
+         "max_abs_err": gram_err, "max_rel_err": gram_rel,
+         "ms": gram_times[0]["ms"], "plain_ms": gram_times[0]["plain_ms"],
+         "bound_ms": gram_times[0]["bound_ms"],
+         "bound_by": gram_times[0]["bound_by"],
+         "library_ms": gram_times[0]["library_ms"], "by_shape": gram_times},
     ]
     for k in kernels:
         check(all(math.isfinite(k[f]) for f in ("max_abs_err", "ms",

@@ -37,17 +37,20 @@ _SIGNATURES = {
     # X, D, p, K, N, T, eps2, eps_mode, warps, idx, gamma, err, nsel, stream
     "lyssa_omp_fused": [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
                         _P],
-    # X, Dp, p, ng, gs, N, T, warps, gamma, gidx, err, nsel, stream
-    "lyssa_group_omp": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # X, Dp, A0, Gp, p, ng, gs, N, T, warps, gamma, gidx, err, nsel, stream
+    "lyssa_group_omp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                        _P, _P],
     # img, H, W, p, do_dc, do_norm, eps, Wm, off, X, means, scales, stream
     "lyssa_fused_patches": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P,
                             _P],
-    # X, D, p, K, N, tun, n_refine, lam, thr, thr_done, idx, mask, theta,
-    # gact, gr, done, stream
-    "lyssa_fs_cold": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P,
+    # A0, G, K, N, tun, n_refine, lam, thr, thr_done, warps, idx, mask,
+    # theta, gact, gr, done, stream
+    "lyssa_fs_cold": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P, _P,
                       _P, _P, _P],
     # r, D, p, K, N, bf16, k_out, stream
     "lyssa_select_abs_argmax": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # A, B, p, M, K, C, stream
+    "lyssa_gram": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 

@@ -1,47 +1,59 @@
-// Fused feature-sign cold start: the first Tun activations of one signal's
-// lasso solve, unrolled, in one warp.
+// Fused feature-sign cold start in the Gram form: the first Tun activations
+// of one signal's lasso solve, unrolled, in one warp.
 //
 // Replaces lyssandra_tpu/ops/pallas_fs.py::_kernel_fs_cold (K6).  It computes
 // what the Pallas kernel and the plain version (solvers/lasso.py::
 // _fs_unrolled_state) compute, step for step, for
-//     min_g ||x - D g||^2 + lam ||g||_1.
-// The TPU-only layout is not carried over: no 3-way bf16 one-hot atom fetch
-// (a direct column read is exact here), no lists of (1, Nb) rows, no padding
-// of p and K to (8, 128) tiles or of the lanes to a block.
+//     min_g ||x - D g||^2 + lam ||g||_1,
+// but from alpha0 = X^T D (N, K) and the Gram matrix G = D^T D (K, K), which
+// the wrapper computes first with csrc/gram.cu.  The kernel never reads D or
+// x.  The TPU-only layout is not carried over: no 3-way bf16 one-hot atom
+// fetch, no lists of (1, Nb) rows, no padding of p and K to (8, 128) tiles or
+// of the lanes to a block.
 //
-// Per lane (signal x, column n of X (p, N)), gr = 2 D^T (0 - x); the lane is
-// done on entry when max |gr| <= lam + 1e-12.  Then for t < Tun, c = t + 1,
-// while the lane is not done:
-//   activation: k = the lowest index among the maxima of |gr| (gr is zero at
-//     active slots); it is live when that max exceeds thr = lam (1 + 1e-4) +
-//     1e-7.  Slot t takes d_k (zero when not live), a0 = d_k . x, theta =
-//     -sign(gr_k), and row/column t of the compact Gram G = dsel dsel^T;
+// Per lane (row n of alpha0), gr = -2 alpha0; the lane is done on entry when
+// max |gr| <= lam + 1e-12.  Then for t < Tun, c = t + 1, while the lane is
+// not done:
+//   activation: k = the lowest index among the maxima of |gr| over the
+//     inactive atoms; it is live when that max exceeds thr = lam (1 + 1e-4)
+//     + 1e-7.  Slot t takes atom k (index 0 and a zero Gram row when not
+//     live), a0 = alpha0[n, k], theta = -sign(gr_k), and row/column t of the
+//     compact Gram, G[k, sel_b] for the live slots b <= t;
 //   n_refine refinements at width c: the ridge-masked system
 //     (mask G mask + (1 - mask) I + 1e-6 I) g = (a0 - lam theta / 2) mask
 //     by exactly c + 1 CG iterations (closed form at c = 1); a line search
 //     over the c + 1 candidates t = 1 and the zero crossings t_a in (0, 1),
-//     the first minimum winning on a strict <; slots with |g| < 1e-12 leave
-//     the active set;
-//   gradient gr = 2 D^T (dsel^T g - x), zeroed at the active slots, and the
-//     KKT check: done when no inactive |gr| exceeds thr and no active
-//     |2 (G g - a0) + lam theta| exceeds 1e-4.
+//     the first minimum winning on a strict <, t = 1 winning ties; slots
+//     with |g| < 1e-12 leave the active set;
+//   gradient gr_k = 2 (sum_a G[sel_a, k] g_a - alpha0[n, k]), zero at the
+//     active slots, and the KKT check: done when no inactive |gr| exceeds
+//     thr and no active |2 (G g - a0) + lam theta| exceeds 1e-4.
 // A lane that is done keeps its state from then on (the plain version's
 // freeze at the post-activation, pre-refinement snapshot: nothing is live
 // after that), so the warp leaves the step loop; the slots it never reached
 // stay zero, as the plain version leaves them.
 //
-// What bounds it on an H100: the gradient, 2 p K flops per lane and step,
-// reads all of D (p K floats, 768 KB at p=192, K=1024) from L2: thread `lane`
-// accumulates columns lane + 32 j for a chunk of CH columns per pass, so a
-// warp load reads 32 consecutive floats of one row, and the lane's residual
-// R is broadcast from shared memory.  Everything else is O(p Tun + Tun^2)
-// per step: thread a owns slot a (Tun <= 32) and keeps its mask, sign,
-// coefficient, a0 and G g in registers; the CG, matvec and line search read
-// the compact Gram and the broadcast vectors from the warp's shared memory
-// (odd row strides, so threads reading different rows hit different banks).
-// Reductions are xor butterflies, so every thread holds the same values and
-// control flow stays warp-uniform.  One warp per block, so as many lanes fit
-// on an SM as its shared memory holds (7 at p=192, K=1024, Tun=28).
+// What bounds it on an H100.  The gradient now reads the c Gram rows of the
+// support (c K floats, coalesced: thread `lane` takes columns lane + 32 j,
+// 16 of them per pass, so a row is 16 independent loads in flight) from L2,
+// where the residual form read all of D (p K floats) per step; at K=1024
+// that is 2 K c flops a step against 2 p K.  The lane's alpha0 row is
+// staged in its shared memory at entry.  The same pass finds the next
+// violator (max |gr| over the inactive atoms, tested against a bit set of
+// the active atoms in shared memory) and the KKT test, so gr is never
+// stored: the handoff gr is written by one more pass at the end.  What is
+// left is latency: the gradient pass and the (c + 1)-iteration CG and line
+// search, each iteration a c-long matvec from shared memory and
+// xor-butterfly reductions.  Thread a owns slot a (Tun <= 32) and keeps its
+// index, mask, sign, coefficient and a0 in registers; the compact Gram (odd
+// row stride), the broadcast vectors and the alpha0 row sit in the warp's
+// shared memory, 8 KB a lane at Tun=28, K=1024.  So the registers set how many lanes an SM
+// holds: capped at 128 a thread, 4 blocks of 4 lanes fit.  Of 8, 16 or 32
+// columns a pass, alpha0 in shared or global memory, and with or without
+// that cap, no variant was fastest at both 2,048 lanes (one lasso-encoder
+// block) and 16,384; this one was within 5% of the fastest at 2,048 and 11%
+// at 16,384 (tools/kernel_variants.py).  Reductions are xor butterflies, so
+// every thread holds the same values and control flow stays warp-uniform.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -49,17 +61,12 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int CH = 16;  // gradient columns per thread per pass
+constexpr int CH = 16;     // gradient columns per thread per pass
+constexpr int WARPS = 4;   // lanes (warps) per block, at most
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
-    return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, m));
     return v;
 }
 
@@ -85,89 +92,115 @@ __device__ __forceinline__ float sgn(float v) {
 }
 
 // 4-byte words of shared memory one lane needs (lane_smem_bytes / 4 in
-// ops/cuda_fs.py): x, R (p each); gr (K); dsel (Tun, p|1); G (Tun, Tun|1);
-// four 32-wide broadcast vectors
-__host__ __device__ inline size_t lane_floats(int p, int K, int tun) {
-    return 2 * (size_t)p + (size_t)K + (size_t)tun * (size_t)(p | 1) +
-           (size_t)tun * (size_t)(tun | 1) + 4 * 32;
+// ops/cuda_fs.py): the compact Gram (Tun, Tun|1); four 32-wide broadcast
+// vectors and the 32 slot indices; a bit per atom for the active set; the
+// lane's alpha0 row
+__host__ __device__ inline size_t lane_floats(int K, int tun) {
+    return (size_t)tun * (size_t)(tun | 1) + 5 * 32 + ((size_t)K + 31) / 32 +
+           (size_t)K;
 }
 
-// gr[k] = 2 sum_i D[i, k] R[i] for every k; D (p, K) row-major
-__device__ void gradient(const float* __restrict__ D, const float* R, int p,
-                         int K, float* gr, int lane) {
+// One pass over the gradient gr_k = 2 (sum_{a < c} G[sb_a, k] gb_a -
+// a0s[k]) (a0s: the lane's alpha0 row in shared memory), zero at the atoms
+// whose bit is set in `act`.  Returns, on every
+// thread, the largest |gr_k| over the inactive atoms with the lowest such
+// k (K and -1 when there is none) and sign(gr_k) there; writes gr to `out`
+// when it is not null.
+__device__ void gradient_scan(const float* __restrict__ G,
+                              const float* a0s, int K, int c,
+                              const float* gb, const int* sb,
+                              const unsigned* act, float* __restrict__ out,
+                              int lane, float& best, int& bk, float& bsign) {
+    best = -1.f;
+    bk = K;
+    float bs = 0.f;
     for (int k0 = 0; k0 < K; k0 += 32 * CH) {
         float acc[CH];
 #pragma unroll
-        for (int c = 0; c < CH; ++c) acc[c] = 0.f;
+        for (int j = 0; j < CH; ++j) acc[j] = 0.f;
         const int kb = k0 + lane;
-        if (k0 + 32 * CH <= K) {
-            for (int i = 0; i < p; ++i) {
-                const float ri = R[i];
-                const float* row = D + (size_t)i * K + kb;
+        for (int a = 0; a < c; ++a) {
+            const float ga = gb[a];
+            if (ga == 0.f) continue;  // warp-uniform; adds nothing
+            const float* row = G + (size_t)sb[a] * K + kb;
+            if (k0 + 32 * CH <= K) {
 #pragma unroll
-                for (int c = 0; c < CH; ++c)
-                    acc[c] = fmaf(__ldg(row + 32 * c), ri, acc[c]);
+                for (int j = 0; j < CH; ++j)
+                    acc[j] = fmaf(__ldg(row + 32 * j), ga, acc[j]);
+            } else {
+#pragma unroll
+                for (int j = 0; j < CH; ++j)
+                    if (kb + 32 * j < K)
+                        acc[j] = fmaf(__ldg(row + 32 * j), ga, acc[j]);
             }
-        } else {
-            for (int i = 0; i < p; ++i) {
-                const float ri = R[i];
-                const float* row = D + (size_t)i * K;
+        }
+        // k rises within a thread: a strict > keeps the first maximum
 #pragma unroll
-                for (int c = 0; c < CH; ++c) {
-                    const int k = kb + 32 * c;
-                    if (k < K) acc[c] = fmaf(__ldg(row + k), ri, acc[c]);
+        for (int j = 0; j < CH; ++j) {
+            const int k = kb + 32 * j;
+            if (k < K) {
+                const bool active = (act[k >> 5] >> lane) & 1u;
+                const float g = active ? 0.f : 2.f * (acc[j] - a0s[k]);
+                if (out) out[k] = g;
+                const float v = fabsf(g);
+                if (!active && v > best) {
+                    best = v;
+                    bk = k;
+                    bs = g;
                 }
             }
         }
-#pragma unroll
-        for (int c = 0; c < CH; ++c) {
-            const int k = kb + 32 * c;
-            if (k < K) gr[k] = 2.f * acc[c];
-        }
     }
-    __syncwarp();
+    warp_arg(best, bk, true);
+    // the winner's own signed value lives on the thread that owns column bk
+    bs = __shfl_sync(FULL, bs, bk & 31);
+    bsign = bk < K ? sgn(bs) : 0.f;
 }
 
-__global__ void fs_cold_kernel(const float* __restrict__ X,
-                               const float* __restrict__ D, int p, int K,
-                               int N, int tun, int n_refine, float lam,
-                               float thr, float thr_done,
-                               int* __restrict__ idx_out,
-                               unsigned char* __restrict__ mask_out,
-                               float* __restrict__ theta_out,
-                               float* __restrict__ g_out,
-                               float* __restrict__ gr_out,
-                               unsigned char* __restrict__ done_out) {
+// at most WARPS warps a block, and registers capped so that 4 blocks fit an
+// SM (123 a thread, no spills: tools/kernel_variants.py)
+__global__ void __launch_bounds__(32 * WARPS, 4)
+fs_cold_kernel(const float* __restrict__ A0, const float* __restrict__ G,
+               int K, int N, int tun, int n_refine, float lam, float thr,
+               float thr_done, int* __restrict__ idx_out,
+               unsigned char* __restrict__ mask_out,
+               float* __restrict__ theta_out, float* __restrict__ g_out,
+               float* __restrict__ gr_out,
+               unsigned char* __restrict__ done_out) {
     extern __shared__ float smem[];
-    const int lane = threadIdx.x;
-    const long long n = blockIdx.x;
-    if (n >= N) return;
-    const int ps = p | 1;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const long long n = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+    if (n >= N) return;  // warp-uniform: no block-level barrier follows
     const int gl = tun | 1;
+    const int kw = (K + 31) / 32;
 
-    float* x = smem;
-    float* R = x + p;
-    float* gr = R + p;
-    float* dsel = gr + K;        // (tun, ps): row a = atom of slot a
-    float* G = dsel + tun * ps;  // (tun, gl): compact Gram of the slots
-    float* vb = G + tun * gl;    // matvec operand, broadcast
+    float* Gc = smem + (size_t)warp * lane_floats(K, tun);  // (tun, gl)
+    float* vb = Gc + tun * gl;   // matvec operand, broadcast
     float* gb = vb + 32;         // coefficients, broadcast
     float* db = gb + 32;         // line-search direction, broadcast
     float* mb = db + 32;         // slot masks, broadcast
+    int* sb = reinterpret_cast<int*>(mb + 32);                // slot atoms
+    unsigned* act = reinterpret_cast<unsigned*>(sb + 32);     // active bits
+    float* a0s = reinterpret_cast<float*>(act + kw);          // alpha0 row
 
-    for (int i = lane; i < p; i += 32) {
-        const float v = X[(size_t)i * N + n];
-        x[i] = v;
-        R[i] = -v;
-    }
+    for (int k = lane; k < K; k += 32) a0s[k] = A0[(size_t)n * K + k];
+    for (int w = lane; w < kw; w += 32) act[w] = 0u;
+    gb[lane] = 0.f;
+    sb[lane] = 0;
     __syncwarp();
-    gradient(D, R, p, K, gr, lane);  // at g = 0
-    float m0 = 0.f;
-    for (int k = lane; k < K; k += 32) m0 = fmaxf(m0, fabsf(gr[k]));
-    bool done = warp_max(m0) <= thr_done;
+
+    // gr at g = 0 is -2 alpha0: the done-on-entry test and the first
+    // violator
+    float best, bsign;
+    int bk;
+    gradient_scan(G, a0s, K, 0, gb, sb, act, nullptr, lane, best, bk, bsign);
+    bool done = best <= thr_done;
+    int c_last = 0;  // slots in the last gradient (for the handoff pass)
 
     // slot `lane` (zero until step `lane` fills it)
     int s_idx = 0;
+    bool s_live = false;
     float s_m = 0.f, s_th = 0.f, s_g = 0.f, s_a0 = 0.f;
 
     for (int t = 0; t < tun && !done; ++t) {
@@ -178,50 +211,31 @@ __global__ void fs_cold_kernel(const float* __restrict__ X,
             __syncwarp();
             float s = 0.f;
             if (lane < c) {
-                const float* Gr = G + lane * gl;
+                const float* Gr = Gc + lane * gl;
                 for (int b = 0; b < c; ++b) s = fmaf(Gr[b], vb[b], s);
             }
             __syncwarp();
             return s;
         };
 
-        // --- activation: the largest |gr|, lowest index on ties
-        float best = -1.f;
-        int bk = K;
-        for (int k = lane; k < K; k += 32) {
-            const float v = fabsf(gr[k]);
-            if (v > best) {  // k rises within a thread: the first max stays
-                best = v;
-                bk = k;
-            }
-        }
-        warp_arg(best, bk, true);
+        // --- activation: the violator found by the last gradient pass
         const bool live = bk < K && best > thr;
         const float livef = live ? 1.f : 0.f;
-        float* dk = dsel + t * ps;
-        float ax = 0.f;
-        for (int i = lane; i < p; i += 32) {
-            const float v = live ? D[(size_t)i * K + bk] : 0.f;
-            dk[i] = v;
-            ax = fmaf(v, x[i], ax);
-        }
-        ax = warp_sum(ax);
-        const float thk = -sgn(bk < K ? gr[bk] : 0.f) * livef;
-        __syncwarp();
-        // --- grow the compact Gram: row and column t
-        if (lane < c) {
-            const float* dj = dsel + lane * ps;
-            float s = 0.f;
-            for (int i = 0; i < p; ++i) s = fmaf(dj[i], dk[i], s);
-            G[t * gl + lane] = s;
-            G[lane * gl + t] = s;
-        }
         if (lane == t) {
             s_idx = live ? bk : 0;
+            s_live = live;
             s_m = livef;
-            s_th = thk;
+            s_th = -bsign * livef;
             s_g = 0.f;
-            s_a0 = ax;
+            s_a0 = live ? a0s[bk] : 0.f;
+        }
+        // --- grow the compact Gram: row and column t (zero for a slot
+        // that holds no atom)
+        if (lane < c) {
+            const float s =
+                (live && s_live) ? __ldg(G + (size_t)bk * K + s_idx) : 0.f;
+            Gc[t * gl + lane] = s;
+            Gc[lane * gl + t] = s;
         }
         __syncwarp();
 
@@ -233,7 +247,7 @@ __global__ void fs_cold_kernel(const float* __restrict__ X,
             const float rhs = (a0m - lam * th2 / 2.f) * m2;
             float gnew;
             if (c == 1) {
-                gnew = lane == 0 ? rhs / (G[0] + 1e-6f) * m2 : 0.f;
+                gnew = lane == 0 ? rhs / (Gc[0] + 1e-6f) * m2 : 0.f;
             } else {
                 // ridge-masked CG from g2, exactly c + 1 iterations
                 float xv = g2 * m2;
@@ -298,21 +312,19 @@ __global__ void fs_cold_kernel(const float* __restrict__ X,
             th2 = m2 > 0.5f ? sgn(gbest) : 0.f;
         }
 
-        // --- full gradient at the refined point, masked, and the KKT check
+        // --- gradient at the refined point over the active slots, the next
+        // violator and the KKT check
+        for (int w = lane; w < kw; w += 32) act[w] = 0u;
         gb[lane] = g2 * m2;
+        sb[lane] = s_idx;
         __syncwarp();
-        for (int i = lane; i < p; i += 32) {
-            float v = 0.f;
-            for (int a = 0; a < c; ++a) v = fmaf(gb[a], dsel[a * ps + i], v);
-            R[i] = v - x[i];
-        }
+        if (lane < c && m2 > 0.5f)
+            atomicOr(&act[s_idx >> 5], 1u << (s_idx & 31));
         __syncwarp();
-        gradient(D, R, p, K, gr, lane);
-        if (lane < c && m2 > 0.5f) gr[s_idx] = 0.f;
-        __syncwarp();
-        float mx = 0.f;
-        for (int k = lane; k < K; k += 32) mx = fmaxf(mx, fabsf(gr[k]));
-        const bool inact_viol = warp_max(mx) > thr;
+        gradient_scan(G, a0s, K, c, gb, sb, act, nullptr, lane, best, bk,
+                      bsign);
+        c_last = c;
+        const bool inact_viol = best > thr;
         const float va =
             fabsf(2.f * (Hg - s_a0 * m2) * m2 + lam * th2) * m2;
         const bool act_viol = __any_sync(FULL, va > 1e-4f);
@@ -329,34 +341,40 @@ __global__ void fs_cold_kernel(const float* __restrict__ X,
         theta_out[o] = s_th;
         g_out[o] = s_g;
     }
-    for (int k = lane; k < K; k += 32) gr_out[(size_t)n * K + k] = gr[k];
+    // the handoff gradient: the last pass again, written out (the same
+    // operands in the same order, so the same values)
+    gradient_scan(G, a0s, K, c_last, gb, sb, act, gr_out + (size_t)n * K,
+                  lane, best, bk, bsign);
     if (lane == 0) done_out[n] = done ? 1 : 0;
 }
 
 }  // namespace
 
-// X (p, N) and D (p, K) row-major float32; idx (N, tun) int32, mask (N, tun)
-// bytes 0/1, theta and gact (N, tun) float32, gr (N, K) float32 (the gradient
-// at the handoff point, zero at active slots), done (N,) bytes 0/1.  thr and
-// thr_done are the activation / KKT threshold lam (1 + 1e-4) + 1e-7 and the
-// done-on-entry bound lam + 1e-12, rounded to float32 by the caller as the
-// plain version rounds them.  1 <= tun <= 32; one lane (warp) per block.
-// Returns cudaGetLastError() after the launch.
-extern "C" int lyssa_fs_cold(const float* X, const float* D, int p, int K,
-                             int N, int tun, int n_refine, float lam,
-                             float thr, float thr_done, int* idx,
+// alpha0 (N, K) = X^T D and G (K, K) = D^T D row-major float32; idx (N, tun)
+// int32, mask (N, tun) bytes 0/1, theta and gact (N, tun) float32, gr (N, K)
+// float32 (the gradient at the handoff point, zero at active slots), done
+// (N,) bytes 0/1.  thr and thr_done are the activation / KKT threshold
+// lam (1 + 1e-4) + 1e-7 and the done-on-entry bound lam + 1e-12, rounded to
+// float32 by the caller as the plain version rounds them.  1 <= tun <= 32;
+// `warps` lanes (warps) per block.  Returns cudaGetLastError() after the
+// launch.
+extern "C" int lyssa_fs_cold(const float* A0, const float* G, int K, int N,
+                             int tun, int n_refine, float lam, float thr,
+                             float thr_done, int warps, int* idx,
                              unsigned char* mask, float* theta, float* gact,
                              float* gr, unsigned char* done, void* stream) {
-    if (tun < 1 || tun > 32 || n_refine < 0 || p < 1 || K < 1)
+    if (tun < 1 || tun > 32 || n_refine < 0 || K < 1 || warps < 1 ||
+        warps > WARPS)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const size_t smem = lane_floats(p, K, tun) * sizeof(float);
+    const size_t smem = lane_floats(K, tun) * sizeof(float) * warps;
     cudaError_t e = cudaFuncSetAttribute(
         fs_cold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    fs_cold_kernel<<<(unsigned)N, 32, smem, s>>>(X, D, p, K, N, tun, n_refine,
-                                                  lam, thr, thr_done, idx,
-                                                  mask, theta, gact, gr, done);
+    const unsigned blocks = (unsigned)((N + warps - 1) / warps);
+    fs_cold_kernel<<<blocks, 32 * warps, smem, s>>>(
+        A0, G, K, N, tun, n_refine, lam, thr, thr_done, idx, mask, theta,
+        gact, gr, done);
     return static_cast<int>(cudaGetLastError());
 }

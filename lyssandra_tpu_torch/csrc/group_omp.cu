@@ -1,4 +1,5 @@
-// Fused group OMP: all T group-selection steps of one signal in one warp.
+// Fused group OMP in the Gram form: all T group-selection steps of one signal
+// in one warp.
 //
 // Replaces lyssandra_tpu/ops/pallas_group.py::_kernel (K4) and
 // ::_kernel_packed (K5).  The two compute the same thing and differ only in
@@ -8,24 +9,27 @@
 // member fetch, the padding of groups to 128 and of lanes to a 256 block.  A
 // direct column read is exact here.
 //
-// Input: the slot dictionary Dp (p, ng*gs) row-major, column g*gs + s = atom
-// s of group g (zero in a padded slot), built once per call by the wrapper.
-// The reference pads the groups to 128 with zero atoms; a padded group
-// scores 0 and has a higher index than every real group, and T <= ng, so it
-// never wins a step: the port needs no padded groups.
+// Inputs: the slot dictionary Dp (p, ng*gs) row-major, column g*gs + s =
+// atom s of group g (zero in a padded slot), built once per call by the
+// wrapper; alpha0 = X^T Dp (N, ng*gs) and the slot Gram Gp = Dp^T Dp
+// (ng*gs, ng*gs), computed first by csrc/gram.cu.  The reference pads the
+// groups to 128 with zero atoms; a padded group scores 0 and has a higher
+// index than every real group, and T <= ng, so it never wins a step: the
+// port needs no padded groups.
 //
-// Per lane (signal x, column n of X (p, N)), with r = x, A = T gs slots:
+// Per lane (signal x, column n of X (p, N)), with A = T gs slots:
 //   repeat t < T:
-//     g      = lowest index among the maxima of sum_s (d_{g,s} . r)^2 over
-//              the groups not selected yet
+//     corr   = alpha0 - Gp[:, sel] gam (gam the refined coefficients so far)
+//     g      = lowest index among the maxima of sum_s corr_{g,s}^2 over the
+//              groups not selected yet
 //     slots t gs .. t gs + gs - 1 take the atoms of g; a slot is valid when
-//              ||d||^2 > 1e-12 (padded members are zero atoms)
-//     block append to the inverse factor Linv:
-//       W = Linv G_cross (G_cross = selected atoms . new atoms),
+//              ||d||^2 = Gp[c, c] > 1e-12 (padded members are zero atoms)
+//     block append to the inverse factor Linv, from Gp and alpha0:
+//       W = Linv G_cross (G_cross = Gp[selected, new]),
 //       S = G_nn - W^T W (+1 on the diagonal of an invalid slot),
 //       Lb = chol(S + 1e-9 I); a pivot <= 1e-8 freezes the lane,
 //       new rows = [-Lb^{-1} W^T Linv | Lb^{-1}]
-//     gamma = Linv^T Linv a0, then two refinement rounds
+//     gamma = Linv^T Linv a0, then two refinement rounds on the residual
 //       gamma += Linv^T Linv (D_sel^T (x - D_sel gamma)); r = x - D_sel gamma
 //   then a final solve over all slots with two refinement rounds; err is its
 //   ||r||^2, gamma is masked by slot validity, nsel counts groups.
@@ -33,18 +37,28 @@
 // zero, so leaving the step loop is exact (the final solve reproduces its
 // retained solution).
 //
-// What bounds it on an H100: the group scores, 2 p K flops per lane and
-// step, read all of Dp (p K floats, 256 KB at p=64, K=1024): as in
-// omp_fused.cu, Dp stays in L2/L1 and every warp re-reads it.  Thread `lane`
-// scores groups g = lane (mod 32): for each row i it reads the gs floats of
-// its group, so the warp reads 32 gs contiguous floats per row.  The block
-// append and the solves are O(A^2 + A p) per step, thread j owning slot j
-// (A <= 32): the selected atoms, the factor and the small vectors sit in
-// the warp's shared memory, with odd row strides so that threads reading
-// different rows hit different banks.  The gs x gs factorization runs on
-// lane 0 and is shared through shared memory; reductions over p use xor
-// butterflies, so every thread holds the same values and control flow stays
-// warp-uniform.
+// What bounds it on an H100.  The scores read, per lane and step, the lane's
+// alpha0 row and the Gp rows of the t gs selected slots (K floats each,
+// 2 K t gs flops), where the residual form read all of Dp (2 p K flops a
+// step): 24 rows of 1,024 floats over T=4 steps at gs=4 against 4 x 64.
+// Thread `lane` scores groups g = lane (mod 32) one at a time and reads a
+// group's gs consecutive floats of a row as one 16-byte load at gs=4
+// (float4 where gs is a multiple of 4, float2 where it is even), so a warp
+// reads 32 gs contiguous floats of each row.  (Scoring 32 / gs groups per
+// thread at once, to keep more loads in flight, took 140 registers a thread
+// and ran slower: tools/kernel_variants.py.)  The factor's inputs are
+// entries of Gp and alpha0, not p-long dot products.  The refinement rounds and the final
+// err stay on the residual (O(A p) a step, the selected atoms in the warp's
+// shared memory): Gram-form energies cancel at small residuals, and err is
+// an output.  The block append and the solves are O(A^2) per step, thread j
+// owning slot j (A <= 32); the factor and the small vectors sit in shared
+// memory with odd row strides, so that threads reading different rows hit
+// different banks.  The gs x gs factorization runs on lane 0 and is shared
+// through shared memory; reductions over p use xor butterflies, so every
+// thread holds the same values and control flow stays warp-uniform.  What
+// is left is latency, one warp per lane: the L2 loads of the scores, and
+// the serial p-long dot products and triangular solves of the refinement
+// rounds; at 96 registers a thread an SM holds about 20 lanes.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -97,6 +111,33 @@ __device__ __forceinline__ void solve(const float* L, int la, int hi,
     __syncwarp();
 }
 
+// the gs consecutive floats at ptr (16-byte loads where gs allows: rows of
+// alpha0 and Gp are ng gs floats long and start on 16-byte boundaries)
+template <int GS>
+__device__ __forceinline__ void load_group(const float* __restrict__ ptr,
+                                           float (&v)[GS]) {
+    if constexpr (GS % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < GS / 4; ++i) {
+            const float4 q = __ldg(reinterpret_cast<const float4*>(ptr) + i);
+            v[4 * i] = q.x;
+            v[4 * i + 1] = q.y;
+            v[4 * i + 2] = q.z;
+            v[4 * i + 3] = q.w;
+        }
+    } else if constexpr (GS % 2 == 0) {
+#pragma unroll
+        for (int i = 0; i < GS / 2; ++i) {
+            const float2 q = __ldg(reinterpret_cast<const float2*>(ptr) + i);
+            v[2 * i] = q.x;
+            v[2 * i + 1] = q.y;
+        }
+    } else {
+#pragma unroll
+        for (int s = 0; s < GS; ++s) v[s] = __ldg(ptr + s);
+    }
+}
+
 // r = x - sum_{j < hi} gam_j dsel_j; returns ||r||^2 (warp-uniform)
 __device__ __forceinline__ float residual(const float* x, const float* dsel,
                                           int ps, const float* gam, int hi,
@@ -137,7 +178,9 @@ __device__ float refined_solve(const float* x, const float* dsel, int ps,
 
 template <int GS>
 __global__ void group_omp_kernel(const float* __restrict__ X,
-                                 const float* __restrict__ Dp, int p, int ng,
+                                 const float* __restrict__ Dp,
+                                 const float* __restrict__ A0,
+                                 const float* __restrict__ Gp, int p, int ng,
                                  int N, int T, float* __restrict__ gam_out,
                                  int* __restrict__ gidx_out,
                                  float* __restrict__ err_out,
@@ -152,17 +195,18 @@ __global__ void group_omp_kernel(const float* __restrict__ X,
     const int ps = p | 1;
     const int la = A | 1;
     const size_t ngs = (size_t)ng * GS;
+    const float* A0n = A0 + (size_t)n * ngs;
 
     float* x = smem + warp * lane_floats(p, GS, T);
     float* r = x + p;
     float* dsel = r + p;              // (A, ps): row j = atom of slot j
     float* L = dsel + A * ps;         // (A, la): inverse factor, lower
-    float* a0 = L + A * la;           // d_j . x
+    float* a0 = L + A * la;           // alpha0 of slot j (d_j . x)
     float* valid = a0 + A;            // 1 on a real member slot
     float* gam = valid + A;
     float* y = gam + A;
     float* v = y + A;
-    float* Gc = v + A;                // (A, GP): dsel_j . dnew_s, j < base
+    float* Gc = v + A;                // (A, GP): Gp[slot j, new s], j < base
     float* W = Gc + A * GP;           // (A, GP): Linv Gc
     float* Sc = W + A * GP;           // (GS, GS): Schur block, then its factor
     float* Lbi = Sc + GS * GS;        // (GS, GS): inverse of the factor
@@ -186,7 +230,8 @@ __global__ void group_omp_kernel(const float* __restrict__ X,
     __syncwarp();
 
     for (int t = 0; t < T; ++t) {
-        // --- selection: argmax_g sum_s (d_{g,s} . r)^2, lowest g on ties
+        // --- selection: argmax_g sum_s corr_{g,s}^2, lowest g on ties, with
+        // corr = alpha0 - sum over the t gs selected slots of gam_j Gp[slot_j]
         float best = -1.f;
         int bg = ng;
         for (int g = lane; g < ng; g += 32) {
@@ -194,14 +239,19 @@ __global__ void group_omp_kernel(const float* __restrict__ X,
             for (int j = 0; j < t; ++j) taken |= gids[j] == g;
             if (taken) continue;  // a selected group never wins again
             float c[GS];
+            load_group<GS>(A0n + (size_t)g * GS, c);
+            for (int j = 0; j < t; ++j) {
+                const size_t slot0 = (size_t)gids[j] * GS;
 #pragma unroll
-            for (int s = 0; s < GS; ++s) c[s] = 0.f;
-            const float* dg = Dp + (size_t)g * GS;
-            for (int i = 0; i < p; ++i) {
-                const float ri = r[i];
-                const float* row = dg + (size_t)i * ngs;
+                for (int s2 = 0; s2 < GS; ++s2) {
+                    const float gj = gam[j * GS + s2];
+                    float row[GS];
+                    load_group<GS>(Gp + (slot0 + s2) * ngs + (size_t)g * GS,
+                                   row);
 #pragma unroll
-                for (int s = 0; s < GS; ++s) c[s] = fmaf(row[s], ri, c[s]);
+                    for (int s = 0; s < GS; ++s)
+                        c[s] = fmaf(-gj, row[s], c[s]);
+                }
             }
             float sc = 0.f;
 #pragma unroll
@@ -215,37 +265,26 @@ __global__ void group_omp_kernel(const float* __restrict__ X,
         if (bg >= ng) break;  // every score NaN: nothing to read; freeze
         const int base = t * GS;
         const int hi = base + GS;
+        const size_t cnew = (size_t)bg * GS;  // the new group's first column
 
-        // --- fetch the group's atoms into slots base .. hi - 1
+        // --- fetch the group's atoms into slots base .. hi - 1 (for the
+        // residual of the refinement rounds)
         for (int s = 0; s < GS; ++s)
             for (int i = lane; i < p; i += 32)
-                dsel[(base + s) * ps + i] =
-                    Dp[(size_t)i * ngs + (size_t)bg * GS + s];
-        __syncwarp();
-        // thread j: G_cross row j (j < base), or slot j's validity and a0
+                dsel[(base + s) * ps + i] = Dp[(size_t)i * ngs + cnew + s];
+        // thread j: G_cross row j (j < base), or slot j's validity and a0,
+        // all entries of Gp and alpha0
         for (int j = lane; j < hi; j += 32) {
-            const float* dj = dsel + j * ps;
             if (j < base) {
-                float acc[GS];
+                float row[GS];
+                load_group<GS>(Gp + ((size_t)gids[j / GS] * GS + j % GS) * ngs
+                                   + cnew, row);
 #pragma unroll
-                for (int s = 0; s < GS; ++s) acc[s] = 0.f;
-                for (int i = 0; i < p; ++i) {
-                    const float dv = dj[i];
-#pragma unroll
-                    for (int s = 0; s < GS; ++s)
-                        acc[s] = fmaf(dv, dsel[(base + s) * ps + i], acc[s]);
-                }
-#pragma unroll
-                for (int s = 0; s < GS; ++s) Gc[j * GP + s] = acc[s];
+                for (int s = 0; s < GS; ++s) Gc[j * GP + s] = row[s];
             } else {
-                float nn = 0.f, ax = 0.f;
-                for (int i = 0; i < p; ++i) {
-                    const float dv = dj[i];
-                    nn = fmaf(dv, dv, nn);
-                    ax = fmaf(dv, x[i], ax);
-                }
-                valid[j] = nn > 1e-12f ? 1.f : 0.f;
-                a0[j] = ax;
+                const size_t cj = cnew + (j - base);
+                valid[j] = __ldg(Gp + cj * ngs + cj) > 1e-12f ? 1.f : 0.f;
+                a0[j] = __ldg(A0n + cj);
             }
         }
         __syncwarp();
@@ -268,10 +307,7 @@ __global__ void group_omp_kernel(const float* __restrict__ X,
         for (int e = lane; e < GS * GS; e += 32) {
             const int s1 = e / GS, s2 = e % GS;
             if (s2 > s1) continue;
-            const float* d1 = dsel + (base + s1) * ps;
-            const float* d2 = dsel + (base + s2) * ps;
-            float gnn = 0.f;
-            for (int i = 0; i < p; ++i) gnn = fmaf(d1[i], d2[i], gnn);
+            float gnn = __ldg(Gp + (cnew + s1) * ngs + cnew + s2);
             if (s1 == s2) gnn += 1.f - valid[base + s1];
             float ww = 0.f;
             for (int i = 0; i < base; ++i)
@@ -364,9 +400,10 @@ __global__ void group_omp_kernel(const float* __restrict__ X,
 }
 
 template <int GS>
-cudaError_t launch(const float* X, const float* Dp, int p, int ng, int N,
-                   int T, int warps, float* gam, int* gidx, float* err,
-                   int* nsel, cudaStream_t stream) {
+cudaError_t launch(const float* X, const float* Dp, const float* A0,
+                   const float* Gp, int p, int ng, int N, int T, int warps,
+                   float* gam, int* gidx, float* err, int* nsel,
+                   cudaStream_t stream) {
     const size_t smem = lane_floats(p, GS, T) * sizeof(float) * warps;
     cudaError_t e = cudaFuncSetAttribute(
         group_omp_kernel<GS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -374,32 +411,41 @@ cudaError_t launch(const float* X, const float* Dp, int p, int ng, int N,
     if (e != cudaSuccess) return e;
     const unsigned blocks = (unsigned)((N + warps - 1) / warps);
     group_omp_kernel<GS><<<blocks, 32 * warps, smem, stream>>>(
-        X, Dp, p, ng, N, T, gam, gidx, err, nsel);
+        X, Dp, A0, Gp, p, ng, N, T, gam, gidx, err, nsel);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// X (p, N) and Dp (p, ng*gs) row-major float32; gamma (N, T*gs), gidx (N, T)
-// int32, err, nsel (N,).  1 <= gs <= 8 and T*gs <= 32; `warps` lanes per
-// block.  Returns cudaGetLastError() after the launch.
-extern "C" int lyssa_group_omp(const float* X, const float* Dp, int p, int ng,
-                               int gs, int N, int T, int warps, float* gam,
-                               int* gidx, float* err, int* nsel,
+// X (p, N) and Dp (p, ng*gs) row-major float32, alpha0 = X^T Dp
+// (N, ng*gs) and Gp = Dp^T Dp (ng*gs, ng*gs) row-major float32; gamma
+// (N, T*gs), gidx (N, T) int32, err, nsel (N,).  1 <= gs <= 8 and
+// T*gs <= 32; `warps` lanes per block.  Returns cudaGetLastError() after
+// the launch.
+extern "C" int lyssa_group_omp(const float* X, const float* Dp,
+                               const float* A0, const float* Gp, int p,
+                               int ng, int gs, int N, int T, int warps,
+                               float* gam, int* gidx, float* err, int* nsel,
                                void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (T < 1 || T * gs > 32) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t e;
+#define LYSSA_GROUP_CASE(G_)                                                 \
+    case G_:                                                                 \
+        e = launch<G_>(X, Dp, A0, Gp, p, ng, N, T, warps, gam, gidx, err,    \
+                       nsel, s);                                             \
+        break;
     switch (gs) {
-        case 1: e = launch<1>(X, Dp, p, ng, N, T, warps, gam, gidx, err, nsel, s); break;
-        case 2: e = launch<2>(X, Dp, p, ng, N, T, warps, gam, gidx, err, nsel, s); break;
-        case 3: e = launch<3>(X, Dp, p, ng, N, T, warps, gam, gidx, err, nsel, s); break;
-        case 4: e = launch<4>(X, Dp, p, ng, N, T, warps, gam, gidx, err, nsel, s); break;
-        case 5: e = launch<5>(X, Dp, p, ng, N, T, warps, gam, gidx, err, nsel, s); break;
-        case 6: e = launch<6>(X, Dp, p, ng, N, T, warps, gam, gidx, err, nsel, s); break;
-        case 7: e = launch<7>(X, Dp, p, ng, N, T, warps, gam, gidx, err, nsel, s); break;
-        case 8: e = launch<8>(X, Dp, p, ng, N, T, warps, gam, gidx, err, nsel, s); break;
+        LYSSA_GROUP_CASE(1)
+        LYSSA_GROUP_CASE(2)
+        LYSSA_GROUP_CASE(3)
+        LYSSA_GROUP_CASE(4)
+        LYSSA_GROUP_CASE(5)
+        LYSSA_GROUP_CASE(6)
+        LYSSA_GROUP_CASE(7)
+        LYSSA_GROUP_CASE(8)
         default: e = cudaErrorInvalidValue;
     }
+#undef LYSSA_GROUP_CASE
     return static_cast<int>(e);
 }

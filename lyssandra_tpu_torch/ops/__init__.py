@@ -1,4 +1,5 @@
 from lyssandra_tpu_torch.ops.cuda_fs import fs_cold_fused
+from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.ops.cuda_group import group_omp_fused
 from lyssandra_tpu_torch.ops.cuda_omp import omp_fused
 from lyssandra_tpu_torch.ops.cuda_patches import (
@@ -31,6 +32,7 @@ def launch_counts() -> dict[str, int]:
         "group_omp_fused": group_omp_fused.launches,
         "fs_cold": fs_cold_fused.launches,
         "select_abs_argmax": select_abs_argmax.launches,
+        "gram": gram.launches,
     }
 
 
@@ -41,3 +43,4 @@ def reset_launch_counts() -> None:
     group_omp_fused.launches = 0
     fs_cold_fused.launches = 0
     select_abs_argmax.launches = 0
+    gram.launches = 0

@@ -2,7 +2,8 @@
 signal's lasso solve in one kernel (``lyssandra_tpu.ops.pallas_fs``
 counterpart).
 
-``fs_cold_fused`` launches the CUDA kernel ``csrc/fs_cold.cu`` for tensors
+``fs_cold_fused`` launches the CUDA kernel ``csrc/fs_cold.cu`` (in the Gram
+form, after ``csrc/gram.cu``'s alpha0 = X^T D and G = D^T D) for tensors
 on the GPU and runs its plain PyTorch version, ``fs_cold_fused_reference``
 (``solvers.lasso._fs_unrolled_state`` without the handoff padding), for
 tensors on the CPU.  Outputs: idx (N, Tun) int32, mask (N, Tun) bool,
@@ -16,9 +17,11 @@ from __future__ import annotations
 import torch
 
 from lyssandra_tpu_torch import _build
+from lyssandra_tpu_torch.ops.cuda_gram import MAX_P, gram
 from lyssandra_tpu_torch.solvers.lasso import _fs_unrolled_state
 
 MAX_TUN = 32            # one warp thread per slot
+_MAX_WARPS = 4          # lanes (warps) per block (csrc/fs_cold.cu's WARPS)
 
 
 def fs_cold_fused_reference(D: torch.Tensor, X: torch.Tensor, *, lam,
@@ -30,27 +33,30 @@ def fs_cold_fused_reference(D: torch.Tensor, X: torch.Tensor, *, lam,
     return st[:6]
 
 
-def lane_smem_bytes(p: int, K: int, t_unroll: int) -> int:
+def lane_smem_bytes(K: int, t_unroll: int) -> int:
     """Shared memory one lane (warp) of the kernel holds (the formula of
-    ``lane_floats`` in csrc/fs_cold.cu): x and the residual, the gradient,
-    the Tun selected atoms (rows padded to an odd stride), the compact
-    Gram (odd stride) and four 32-wide broadcast vectors."""
-    return 4 * (2 * p + K + t_unroll * (p | 1) + t_unroll * (t_unroll | 1)
-                + 4 * 32)
+    ``lane_floats`` in csrc/fs_cold.cu): the compact Gram (odd stride),
+    four 32-wide broadcast vectors and the 32 slot indices, one bit per
+    atom for the active set, and the lane's alpha0 row."""
+    return 4 * (t_unroll * (t_unroll | 1) + 5 * 32 + -(-K // 32) + K)
 
 
 def kernel_supports(p: int, K: int, t_unroll: int) -> bool:
     """Whether the kernel takes signals of length p over K atoms at depth
-    t_unroll (one slot per thread of a warp, the lane's state in shared
-    memory)."""
-    return (p >= 1 and K >= 1 and 1 <= t_unroll <= MAX_TUN
-            and lane_smem_bytes(p, K, t_unroll) <= _build.SMEM_PER_BLOCK)
+    t_unroll (p within the product kernel's range, one slot per thread of
+    a warp, the lane's state in shared memory)."""
+    return (1 <= p <= MAX_P and K >= 1 and 1 <= t_unroll <= MAX_TUN
+            and lane_smem_bytes(K, t_unroll) <= _build.SMEM_PER_BLOCK)
 
 
 def fs_cold_fused(D: torch.Tensor, X: torch.Tensor, *, lam, t_unroll: int,
                   n_refine: int = 2):
     """Fused feature-sign cold start over the columns of X (p, N) with
-    dictionary D (p, K).  Returns (idx, mask, theta, gact, gr, done)."""
+    dictionary D (p, K).  Returns (idx, mask, theta, gact, gr, done).
+
+    On the GPU the kernel works in the Gram form: the product kernel
+    (``cuda_gram.gram``) computes alpha0 = X^T D and G = D^T D first, and
+    the cold-start kernel reads only those."""
     if X.device.type == "cpu" and D.device.type == "cpu":
         return fs_cold_fused_reference(D, X, lam=lam, t_unroll=t_unroll,
                                        n_refine=n_refine)
@@ -68,9 +74,9 @@ def fs_cold_fused(D: torch.Tensor, X: torch.Tensor, *, lam, t_unroll: int,
     tun = int(t_unroll)
     if not kernel_supports(p, K, tun) or n_refine < 0:
         raise ValueError(
-            f"kernel takes 1 <= t_unroll <= {MAX_TUN}, n_refine >= 0 and a "
-            f"lane state that fits shared memory; got p={p}, K={K}, "
-            f"t_unroll={tun}, n_refine={n_refine}")
+            f"kernel takes p <= {MAX_P}, 1 <= t_unroll <= {MAX_TUN}, "
+            f"n_refine >= 0 and a lane state that fits shared memory; got "
+            f"p={p}, K={K}, t_unroll={tun}, n_refine={n_refine}")
     dev = X.device
     idx = torch.zeros((N, tun), dtype=torch.int32, device=dev)
     mask = torch.zeros((N, tun), dtype=torch.bool, device=dev)
@@ -80,17 +86,18 @@ def fs_cold_fused(D: torch.Tensor, X: torch.Tensor, *, lam, t_unroll: int,
     done = torch.zeros((N,), dtype=torch.bool, device=dev)
     if N == 0:
         return idx, mask, theta, gact, gr, done
-    D = D.contiguous()
-    X = X.contiguous()
+    A0 = gram(X, D)                     # (N, K) alpha0 = X^T D
+    G = gram(D, D)                      # (K, K)
     lam = float(lam)
+    warps = min(_MAX_WARPS, _build.SMEM_PER_BLOCK // lane_smem_bytes(K, tun))
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         # the thresholds rounded to float32 once, as the plain version's
         # comparisons with a Python float round them
         code = lib.lyssa_fs_cold(
-            X.data_ptr(), D.data_ptr(), p, K, N, tun, int(n_refine), lam,
-            lam * (1.0 + 1e-4) + 1e-7, lam + 1e-12, idx.data_ptr(),
+            A0.data_ptr(), G.data_ptr(), K, N, tun, int(n_refine), lam,
+            lam * (1.0 + 1e-4) + 1e-7, lam + 1e-12, warps, idx.data_ptr(),
             mask.data_ptr(), theta.data_ptr(), gact.data_ptr(),
             gr.data_ptr(), done.data_ptr(), stream)
     _build.check(lib, code, "fs_cold kernel")

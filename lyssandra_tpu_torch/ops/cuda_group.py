@@ -3,9 +3,10 @@ kernel (``lyssandra_tpu.ops.pallas_group`` counterpart, both of its
 kernels: ``_kernel`` and the sublane-packed ``_kernel_packed`` compute the
 same thing and differ only in their TPU layout).
 
-``group_omp_fused`` launches the CUDA kernel ``csrc/group_omp.cu`` for
-tensors on the GPU and runs its plain PyTorch version,
-``group_omp_fused_reference``, for tensors on the CPU.  Both take the
+``group_omp_fused`` launches the CUDA kernel ``csrc/group_omp.cu`` (in the
+Gram form, after ``csrc/gram.cu``'s alpha0 = X^T Dp and Gp = Dp^T Dp over
+the slot dictionary Dp) for tensors on the GPU and runs its plain PyTorch
+version, ``group_omp_fused_reference``, for tensors on the CPU.  Both take the
 atoms permuted into contiguous groups of gs slots (``slot_dictionary``),
 padded with zero atoms, and map (group, slot) back to the original atom
 ids.  Outputs: idx (N, T*gs) int32 original atom ids, gamma (N, T*gs),
@@ -30,13 +31,13 @@ import numpy as np
 import torch
 
 from lyssandra_tpu_torch import _build
+from lyssandra_tpu_torch.ops.cuda_gram import MAX_P, gram
 from lyssandra_tpu_torch.solvers.greedy import (
     _argmax_first,
     _chol_small_inv,
     _refined_solve,
 )
 
-MAX_P = 512
 MAX_GS = 8
 MAX_SLOTS = 32          # T * gs: one warp thread per slot
 _MAX_WARPS = 4          # lanes (warps) per block
@@ -218,14 +219,16 @@ def group_omp_fused(D: torch.Tensor, X: torch.Tensor, groups, T: int):
         return _atom_ids(members, gidx), gamma, err, nsel, gidx
     Dp = slot_dictionary(D, members, valid)
     X = X.contiguous()
+    A0 = gram(X, Dp)                    # (N, ng*gs) alpha0 = X^T Dp
+    Gp = gram(Dp, Dp)                   # (ng*gs, ng*gs)
     warps = min(_MAX_WARPS, _build.SMEM_PER_BLOCK // lane_smem_bytes(p, gs, T))
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.lyssa_group_omp(
-            X.data_ptr(), Dp.data_ptr(), p, ng, gs, N, T, warps,
-            gamma.data_ptr(), gidx.data_ptr(), err.data_ptr(),
-            nsel.data_ptr(), stream)
+            X.data_ptr(), Dp.data_ptr(), A0.data_ptr(), Gp.data_ptr(), p, ng,
+            gs, N, T, warps, gamma.data_ptr(), gidx.data_ptr(),
+            err.data_ptr(), nsel.data_ptr(), stream)
     _build.check(lib, code, "group_omp kernel")
     group_omp_fused.launches += 1
     return _atom_ids(members, gidx), gamma, err, nsel, gidx

@@ -323,9 +323,11 @@ def test_encoder_from_reference_lasso(tiny):
 
 def test_cold_kernel_envelope():
     """The fused kernel's shape gate: config 4 at the default depth fits
-    (31,008 bytes of shared memory per lane); a depth past 32 slots does
-    not; CPU tensors never take the kernel."""
-    assert lane_smem_bytes(192, 1024, 28) == 31008
+    (8,112 bytes of shared memory per lane in the Gram form: the compact
+    Gram, the broadcast vectors, a bit per atom and the alpha0 row); a
+    depth past 32 slots or a p past the product kernel's 512 does not; CPU
+    tensors never take the kernel."""
+    assert lane_smem_bytes(1024, 28) == 8112
     assert kernel_supports(192, 1024, 28)
     assert kernel_supports(21, 100, 1)
     assert not kernel_supports(192, 1024, 33)

@@ -196,7 +196,7 @@ def test_kernel_library_named_by_source_hash():
     # built only on first use, never at import: nothing here needs nvcc
     names = sorted(p.name for p in _build.sources())
     assert names == ["errors.cu", "fs_cold.cu", "fused_patches.cu",
-                     "group_omp.cu", "omp_fused.cu", "select.cu"]
+                     "gram.cu", "group_omp.cu", "omp_fused.cu", "select.cu"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()

@@ -85,7 +85,8 @@ def test_launch_counters_stay_zero_on_cpu(rng):
                                 eps_mode=False, fused_select=True)
     assert lt.launch_counts() == {
         "omp_fused_t": 0, "omp_fused_eps": 0, "fused_patches": 0,
-        "group_omp_fused": 0, "fs_cold": 0, "select_abs_argmax": 0}
+        "group_omp_fused": 0, "fs_cold": 0, "select_abs_argmax": 0,
+        "gram": 0}
 
 
 def test_dictionary_from_numpy_checks(rng):

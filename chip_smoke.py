@@ -24,14 +24,16 @@ Phases, in order; any failure raises and exits non-zero:
      and G = D^T D of the Gram-form K4 and K6 come from; run before 5c
      and 5d) against A.T @ B at K4's shapes (p=64: alpha0 of a 16,384-lane
      block over K=1024, Gp), K6's (p=192: alpha0 of a 2,048-lane block, G)
-     and ragged edges (p=21, M=500, K=100; p=512, M=1000, K=130): every
+     and ragged edges (p=21, M=500, K=100; p=512, M=1000, K=130; p=576,
+     M=2048, K=1024, K6's alpha0 for 24x24 patches): every
      entry within twice the float32 dot-product bound, 2 gamma_p ||a_i||
      ||b_j||; and its time at those main-path shapes;
   5c. K4/K5 (fused group OMP) against its plain version at the group
      shape p=64, K=1024, gs=4 (256 groups), T=4, N=32768: a well-posed
      group-sparse problem (group ids, nsel, idx equal, gamma within 1e-4),
      Gaussian signals (>= 99.9% of lanes pick the same groups) and lanes
-     that freeze on a duplicated group; then its envelope: ragged groups
+     that freeze on a duplicated group; its time and its wrapper's parts
+     (slot dictionary, both products, atom ids); then its envelope: ragged groups
      (K=62, p=16), gs=8 with T=4 (32 slots), p=512 (shared memory above
      48 KB), T > n_groups through group_omp, and T*gs > 32, which must
      raise;
@@ -43,7 +45,8 @@ Phases, in order; any failure raises and exits non-zero:
      kernel must agree with the plain version on as many lanes as the
      plain version agrees with itself in float64 (less 0.1), with the
      same share of lanes done at the handoff (within 0.005); then its
-     envelope (p=21, K=100; a coherent pair; lam=1e3, where every lane is
+     envelope (p=21, K=100; a coherent pair; p=576, K=1024, Tun=28 through
+     the solver's gate; lam=1e3, where every lane is
      done on entry and the state is zero; a Tun beyond the kernel, which
      must raise) and its time at N=2048 and N=16384 (K4's and K6's times
      are the wrappers', product launches included), and the steps its
@@ -288,7 +291,8 @@ def main():
     )
     from lyssandra_tpu_torch.ops.cuda_gram import gram, gram_reference
     from lyssandra_tpu_torch.ops.cuda_group import (
-        group_omp_fused, group_omp_fused_reference,
+        _atom_ids, group_omp_fused, group_omp_fused_reference,
+        slot_dictionary, slot_table,
     )
     from lyssandra_tpu_torch.ops.cuda_omp import (
         omp_fused, omp_fused_reference,
@@ -302,7 +306,9 @@ def main():
     )
     from lyssandra_tpu_torch.ops.patches import weighted_reconstruct
     from lyssandra_tpu_torch.solvers.greedy import GreedyResult, _omp_impl
-    from lyssandra_tpu_torch.solvers.lasso import host_syncs
+    from lyssandra_tpu_torch.solvers.lasso import (
+        _fs_cold_supported, host_syncs,
+    )
     from lyssandra_tpu_torch.utils.datasets import synthetic_image
 
     dev = torch.device("cuda", 0)
@@ -498,7 +504,7 @@ def main():
 
     rng = np.random.default_rng(9)
     gram_err = gram_rel = 0.0
-    for p_, M_, K_ in ((21, 500, 100), (512, 1000, 130)):
+    for p_, M_, K_ in ((21, 500, 100), (512, 1000, 130), (576, 2048, 1024)):
         A_ = rng.standard_normal((p_, M_)).astype(np.float32)
         B_ = rng.standard_normal((p_, K_)).astype(np.float32)
         e_, r_ = gram_case(dt(A_), dt(B_), f"ragged p={p_} M={M_} K={K_}")
@@ -581,6 +587,20 @@ def main():
         Db, Xk4, groups, T_GROUP))
     print(f"K4 p=64 K=1024 gs=4 T=4 N=32768: kernel {k4_ms:.3f} ms, plain "
           f"{k4_plain_ms:.3f} ms")
+    # the wrapper's parts: the slot dictionary, alpha0 and Gp (both rebuilt
+    # on every call), and the atom ids; the rest is the kernel and the host
+    members, valid, _, _ = slot_table(groups)
+    Dp4 = slot_dictionary(Db, members, valid)
+    gidx4 = group_omp_fused(Db, Xk4, groups, T_GROUP)[4]
+    parts = {"slot dictionary": lambda: slot_dictionary(Db, members, valid),
+             "alpha0 = X^T Dp": lambda: gram(Xk4, Dp4),
+             "Gp = Dp^T Dp": lambda: gram(Dp4, Dp4),
+             "atom ids": lambda: _atom_ids(members, gidx4)}
+    part_ms = {k: cuda_ms(torch, f) for k, f in parts.items()}
+    print("K4 wrapper N=32768: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in part_ms.items())
+        + f"; kernel and host the other {k4_ms - sum(part_ms.values()):.4f} ms")
+    del Dp4, gidx4
 
     rng = np.random.default_rng(3)
     Dr = rng.standard_normal((16, 62))
@@ -675,6 +695,12 @@ def main():
     Xp /= np.linalg.norm(Xp, axis=0)
     fs_case(dt(Dp.astype(np.float32)), dt(Xp.astype(np.float32)), LAM, 6,
             "envelope coherent pair p=24 K=96 Tun=6")
+    # 24x24 patches: p sets only the products' work, not the lane's state
+    D576, X576 = sparse_problem(rng, 576, K4, 1024, 4)
+    D576, X576 = dt(D576), dt(X576)
+    check(_fs_cold_supported(D576, X576, TUN), "K6 gate refuses p=576")
+    fs_case(D576, X576, LAM, TUN, "envelope p=576 K=1024 Tun=28")
+    del D576, X576
     got, _ = fs_case(Dc4, Xb4, 1e3, TUN, "envelope lam=1e3", agree_min=1.0)
     check(bool(got[5].all()) and not bool(got[1].any())
           and not bool(got[3].any()) and not bool(got[0].any()),

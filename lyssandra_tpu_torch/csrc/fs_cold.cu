@@ -52,7 +52,7 @@
 // columns a pass, alpha0 in shared or global memory, and with or without
 // that cap, no variant was fastest at both 2,048 lanes (one lasso-encoder
 // block) and 16,384; this one was within 5% of the fastest at 2,048 and 11%
-// at 16,384 (tools/kernel_variants.py).  Reductions are xor butterflies, so
+// at 16,384 (measured on an H100; PERF.md).  Reductions are xor butterflies, so
 // every thread holds the same values and control flow stays warp-uniform.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -158,7 +158,7 @@ __device__ void gradient_scan(const float* __restrict__ G,
 }
 
 // at most WARPS warps a block, and registers capped so that 4 blocks fit an
-// SM (123 a thread, no spills: tools/kernel_variants.py)
+// SM (123 a thread, no spills)
 __global__ void __launch_bounds__(32 * WARPS, 4)
 fs_cold_kernel(const float* __restrict__ A0, const float* __restrict__ G,
                int K, int N, int tun, int n_refine, float lam, float thr,

@@ -46,7 +46,7 @@
 // (float4 where gs is a multiple of 4, float2 where it is even), so a warp
 // reads 32 gs contiguous floats of each row.  (Scoring 32 / gs groups per
 // thread at once, to keep more loads in flight, took 140 registers a thread
-// and ran slower: tools/kernel_variants.py.)  The factor's inputs are
+// and ran slower on an H100; PERF.md.)  The factor's inputs are
 // entries of Gp and alpha0, not p-long dot products.  The refinement rounds and the final
 // err stay on the residual (O(A p) a step, the selected atoms in the warp's
 // shared memory): Gram-form energies cancel at small residuals, and err is

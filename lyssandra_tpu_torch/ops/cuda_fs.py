@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from lyssandra_tpu_torch import _build
-from lyssandra_tpu_torch.ops.cuda_gram import MAX_P, gram
+from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.solvers.lasso import _fs_unrolled_state
 
 MAX_TUN = 32            # one warp thread per slot
@@ -43,9 +43,9 @@ def lane_smem_bytes(K: int, t_unroll: int) -> int:
 
 def kernel_supports(p: int, K: int, t_unroll: int) -> bool:
     """Whether the kernel takes signals of length p over K atoms at depth
-    t_unroll (p within the product kernel's range, one slot per thread of
-    a warp, the lane's state in shared memory)."""
-    return (1 <= p <= MAX_P and K >= 1 and 1 <= t_unroll <= MAX_TUN
+    t_unroll (one slot per thread of a warp, the lane's state in shared
+    memory; p only sets the product kernel's work)."""
+    return (p >= 1 and K >= 1 and 1 <= t_unroll <= MAX_TUN
             and lane_smem_bytes(K, t_unroll) <= _build.SMEM_PER_BLOCK)
 
 
@@ -74,9 +74,9 @@ def fs_cold_fused(D: torch.Tensor, X: torch.Tensor, *, lam, t_unroll: int,
     tun = int(t_unroll)
     if not kernel_supports(p, K, tun) or n_refine < 0:
         raise ValueError(
-            f"kernel takes p <= {MAX_P}, 1 <= t_unroll <= {MAX_TUN}, "
-            f"n_refine >= 0 and a lane state that fits shared memory; got "
-            f"p={p}, K={K}, t_unroll={tun}, n_refine={n_refine}")
+            f"kernel takes 1 <= t_unroll <= {MAX_TUN}, n_refine >= 0 and a "
+            f"lane state that fits shared memory; got p={p}, K={K}, "
+            f"t_unroll={tun}, n_refine={n_refine}")
     dev = X.device
     idx = torch.zeros((N, tun), dtype=torch.int32, device=dev)
     mask = torch.zeros((N, tun), dtype=torch.bool, device=dev)

@@ -31,13 +31,14 @@ import numpy as np
 import torch
 
 from lyssandra_tpu_torch import _build
-from lyssandra_tpu_torch.ops.cuda_gram import MAX_P, gram
+from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.solvers.greedy import (
     _argmax_first,
     _chol_small_inv,
     _refined_solve,
 )
 
+MAX_P = 512
 MAX_GS = 8
 MAX_SLOTS = 32          # T * gs: one warp thread per slot
 _MAX_WARPS = 4          # lanes (warps) per block

@@ -324,12 +324,15 @@ def test_encoder_from_reference_lasso(tiny):
 def test_cold_kernel_envelope():
     """The fused kernel's shape gate: config 4 at the default depth fits
     (8,112 bytes of shared memory per lane in the Gram form: the compact
-    Gram, the broadcast vectors, a bit per atom and the alpha0 row); a
-    depth past 32 slots or a p past the product kernel's 512 does not; CPU
-    tensors never take the kernel."""
+    Gram, the broadcast vectors, a bit per atom and the alpha0 row), and
+    so do 24x24 patches and 16x16 colour patches, since p sets no shared
+    memory; a depth past 32 slots or an alpha0 row past shared memory does
+    not; CPU tensors never take the kernel."""
     assert lane_smem_bytes(1024, 28) == 8112
     assert kernel_supports(192, 1024, 28)
     assert kernel_supports(21, 100, 1)
+    assert kernel_supports(576, 1024, 28)
+    assert kernel_supports(768, 1024, 28)
     assert not kernel_supports(192, 1024, 33)
     assert not kernel_supports(192, 1024, 0)
     assert not kernel_supports(4096, 65536, 32)

@@ -32,11 +32,18 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from lyssandra_tpu_torch.config import DenoiseConfig  # noqa: E402
+from lyssandra_tpu_torch.config import (  # noqa: E402
+    DenoiseConfig,
+    LassoConfig,
+    OMPConfig,
+)
 from lyssandra_tpu_torch.ops import (  # noqa: E402
+    contrast_normalize,
     dct_dictionary,
     extract_patches,
     launch_counts,
+    normalize_atoms,
+    reconstruct_from_patches,
     remove_dc,
     reset_launch_counts,
 )
@@ -58,8 +65,11 @@ from lyssandra_tpu_torch.apps import Denoiser, denoise, psnr  # noqa: E402
 __all__ = [
     "DenoiseConfig",
     "Denoiser",
+    "LassoConfig",
+    "OMPConfig",
     "SparseEncoder",
     "batch_omp",
+    "contrast_normalize",
     "dct_dictionary",
     "denoise",
     "extract_patches",
@@ -70,8 +80,10 @@ __all__ = [
     "launch_counts",
     "llc",
     "nn_omp",
+    "normalize_atoms",
     "omp",
     "psnr",
+    "reconstruct_from_patches",
     "remove_dc",
     "reset_launch_counts",
     "sparse_encoder",

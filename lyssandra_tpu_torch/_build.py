@@ -34,9 +34,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p
 _SIGNATURES = {
-    # X, D, p, K, N, T, eps2, eps_mode, warps, idx, gamma, err, nsel, stream
-    "lyssa_omp_fused": [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
-                        _P],
+    # X, D, Dt, G, p, K, N, T, eps2, eps_mode, lanes, idx, gamma, err,
+    # nsel, stream
+    "lyssa_omp_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P,
+                        _P, _P, _P],
     # X, Dp, A0, Gp, p, ng, gs, N, T, warps, gamma, gidx, err, nsel, stream
     "lyssa_group_omp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                         _P, _P],
@@ -49,8 +50,8 @@ _SIGNATURES = {
                       _P, _P, _P],
     # r, D, p, K, N, bf16, k_out, stream
     "lyssa_select_abs_argmax": [_P, _P, _I, _I, _I, _I, _P, _P],
-    # A, B, p, M, K, C, stream
-    "lyssa_gram": [_P, _P, _I, _I, _I, _P, _P],
+    # A, B, p, M, K, symmetric, C, stream
+    "lyssa_gram": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -58,10 +59,16 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """The headers the sources include (``csrc/*.cuh``)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liblyssa_kernels_{h.hexdigest()[:16]}.so"
@@ -139,6 +146,10 @@ def load() -> ctypes.CDLL:
     lib.lyssa_fused_patches_whiten_smem.restype = ctypes.c_size_t
     lib.lyssa_select_smem_bytes.argtypes = [ctypes.c_int]
     lib.lyssa_select_smem_bytes.restype = ctypes.c_size_t
+    lib.lyssa_omp_fused_smem_bytes.argtypes = [_I, _I, _I, _I]
+    lib.lyssa_omp_fused_smem_bytes.restype = ctypes.c_size_t
+    lib.lyssa_gram_tile.argtypes = [_I, _I, _I]
+    lib.lyssa_gram_tile.restype = ctypes.c_int
     return lib
 
 

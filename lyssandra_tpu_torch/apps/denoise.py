@@ -29,6 +29,7 @@ from lyssandra_tpu_torch.ops.patches import (
 )
 from lyssandra_tpu_torch.solvers.greedy import (
     GreedyResult,
+    _fused_supported,
     _omp_fused_call,
     _omp_impl,
     batch_omp,
@@ -118,10 +119,16 @@ class Denoiser:
         self.mesh = mesh
 
     def _fast_path(self) -> bool:
-        """True when the two-phase coder applies (T_max leaves headroom
-        above the first phase's T1 = min(10, T_max))."""
+        """True when the two-phase coder applies: T_max leaves headroom
+        above the first phase's T1 = min(10, T_max), and that phase's fused
+        solve takes D (its plain version for a CPU D; on the GPU the kernel,
+        where ``_fused_supported`` finds the shape inside its envelope).
+        Elsewhere the blocked Batch-OMP path codes the patches."""
         cfg = self.cfg
-        return self.mesh is None and cfg.T_max > min(10, cfg.T_max)
+        T1 = min(10, cfg.T_max)
+        return (self.mesh is None and cfg.T_max > T1
+                and (not self.D.is_cuda or _fused_supported(self.D, self.D,
+                                                            T1)))
 
     def __call__(self, noisy, sigma: float | None = None) -> torch.Tensor:
         cfg = self.cfg

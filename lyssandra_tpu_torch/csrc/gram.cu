@@ -1,102 +1,181 @@
 // Product kernel: C = A^T B in float32 for row-major A (p, M) and B (p, K),
-// C (M, K) row-major.
+// C (M, K) row-major; or, asked for a symmetric product, C = A^T A.
 //
 // Serves the Gram form of the greedy and lasso kernels: alpha0 = X^T D
 // (N, K), the D^T x that lyssandra_tpu/ops/pallas_fs.py::_kernel_fs_cold
 // (K6) and lyssandra_tpu/ops/pallas_group.py::_kernel / ::_kernel_packed
-// (K4/K5) compute inside their bodies, and the Gram matrix G = D^T D (K, K),
-// once per call.  Every product is a float32 fma in order over p: no TF32,
-// no tensor cores (the port's numerics policy is full float32).
-//
-// Design, as csrc/select.cu tiles r D: one block of 256 threads owns a
-// BM x BN = 64 x 64 tile of C and walks p in slices of BP = 16 rows, staging
-// the slice's 16 x 64 tiles of A and of B in shared memory (rows of both are
-// contiguous in memory, so each staging load is coalesced and needs no
-// transpose).  Thread (ty, tx) keeps the 4 x 4 products of C rows
-// 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 in registers.  Rows past M,
-// columns past K and slices past p are masked, so any M, K and p >= 1 run.
+// (K4/K5) compute inside their bodies, and the Gram matrix G = D^T D (K, K)
+// that K1/K2 (csrc/omp_fused.cu), K4 and K6 read, once per call.  Every
+// product is a float32 fma in order over p: no TF32, no tensor cores (the
+// port's numerics policy is full float32).
 //
 // What bounds it on an H100: the operations, 2 p M K flops against
 // 4 (p M + p K + M K) bytes (at p=64, M=16,384, K=1,024: 2.1 GFLOP, 0.032 ms
 // at the 67 TFLOP/s float32 peak, against 72 MB, 0.021 ms at 3.35 TB/s).
-// The simple design issues two 16-byte shared-memory loads per 16 fmas and
-// two barriers per slice, with no double buffering; a larger register tile
-// and TMA-fed slices are later work.
+// So the design feeds the fma units: a block of 256 threads owns a tile of
+// C and walks p in slices, staged in shared memory by cp.async through a
+// ring of four buffers, so the loads of the next three slices overlap this
+// slice's fmas, with one barrier a slice (csrc/gemm_tile.cuh).  The tile is chosen by problem size:
+//   - 128 x 128 with 8 x 8 outputs a thread (one 16-byte shared-memory load
+//     of A and of B per 32 fmas), where it gives at least two tiles per SM;
+//   - 64 x 64 with 4 x 4 a thread otherwise (a 1,024^2 Gram matrix is only
+//     64 tiles of 128^2, too few for 132 SMs), at most 64 registers a
+//     thread so that four blocks share an SM.
+// A symmetric product computes only the 64 x 64 tiles on or above the
+// diagonal and writes each off-diagonal tile twice, the mirror through
+// shared memory so that both writes are coalesced.  fma(a, b, c) =
+// fma(b, a, c), so the mirror is bitwise the entry the other triangle would
+// have computed.  Rows past M, columns past K and slices past p are zero
+// filled, so any M, K and p >= 1 run.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
 
-constexpr int BM = 64;  // rows of C (columns of A) per block
-constexpr int BN = 64;  // columns of C (columns of B) per block
-constexpr int BP = 16;  // rows of A and B per staged slice
 constexpr int THREADS = 256;
+constexpr int NSTAGE = 4;             // staged slices in the ring
+constexpr int SMEM_FLOATS = 8192;     // NSTAGE BP (BM + BN) of both configs
 
-__global__ void __launch_bounds__(THREADS)
+template <int BM, int BN, int TM, int TN, int BP, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 gram_kernel(const float* __restrict__ A, const float* __restrict__ B, int p,
-            int M, int K, float* __restrict__ C) {
-    __shared__ __align__(16) float As[BP][BM];
-    __shared__ __align__(16) float Bs[BP][BN];
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
-    const long long m0 = (long long)blockIdx.x * BM;
-    const long long k0 = (long long)blockIdx.y * BN;
+            int M, int K, int symmetric, float* __restrict__ C) {
+    using Tl = lyssa::Tile<BM, BN, TM, TN>;
+    static_assert(Tl::NT == THREADS, "one output tile per block");
+    static_assert(NSTAGE * BP * (BM + BN) <= SMEM_FLOATS, "staging ring");
+    __shared__ __align__(16) float smem[SMEM_FLOATS];
+    float* As = smem;                       // [NSTAGE][BP][BM]
+    float* Bs = smem + NSTAGE * BP * BM;    // [NSTAGE][BP][BN]
 
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int c0 = 0; c0 < p; c0 += BP) {
-        __syncthreads();  // the last slice's reads are done
-        for (int e = tid; e < BP * BM; e += THREADS) {
-            const int c = c0 + e / BM;
-            const long long m = m0 + e % BM;
-            const long long k = k0 + e % BN;
-            As[e / BM][e % BM] = (c < p && m < M) ? A[(size_t)c * M + m] : 0.f;
-            Bs[e / BN][e % BN] = (c < p && k < K) ? B[(size_t)c * K + k] : 0.f;
+    int bi = blockIdx.x, bj = blockIdx.y;
+    if (symmetric) {  // blockIdx.x counts the tiles on or above the diagonal
+        const int nt = (K + BN - 1) / BN;
+        int rem = blockIdx.x;
+        bi = 0;
+        while (rem >= nt - bi) {
+            rem -= nt - bi;
+            ++bi;
         }
-        __syncthreads();
+        bj = bi + rem;
+    }
+    const long long m0 = (long long)bi * BM;
+    const long long k0 = (long long)bj * BN;
+    const int tx = threadIdx.x % Tl::TX;
+    const int ty = threadIdx.x / Tl::TX;
+    const bool va = (M & 3) == 0 && ((size_t)A & 15) == 0;
+    const bool vb = (K & 3) == 0 && ((size_t)B & 15) == 0;
+
+    float acc[TM][TN];
 #pragma unroll
-        for (int c = 0; c < BP; ++c) {
-            const float4 a = *reinterpret_cast<const float4*>(&As[c][4 * ty]);
-            const float4 b = *reinterpret_cast<const float4*>(&Bs[c][4 * tx]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+    lyssa::pipeline<NSTAGE>(
+        (p + BP - 1) / BP,
+        [&](int s, int buf) {
+            lyssa::stage_tile<BP, BM, THREADS>(As + buf * BP * BM, A, p, M,
+                                               s * BP, m0, va);
+            lyssa::stage_tile<BP, BN, THREADS>(Bs + buf * BP * BN, B, p, K,
+                                               s * BP, k0, vb);
+        },
+        [&](int, int buf) {
+            Tl::template mma<BP>(acc, As + buf * BP * BM, BM,
+                                 Bs + buf * BP * BN, BN, ty, tx);
+        });
+
+    const bool vc = (K & 3) == 0 && ((size_t)C & 15) == 0;
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int i = 0; i < TM; ++i) {
+        const long long m = m0 + Tl::row(ty, i);
+        if (m >= M) continue;
+        float* crow = C + (size_t)m * K;
+#pragma unroll
+        for (int g = 0; g < TN / Tl::CV; ++g) {
+            const long long k = k0 + Tl::col(tx, g * Tl::CV);
+            if (vc && Tl::CV == 4) {
+                if (k < K)
+                    *reinterpret_cast<float4*>(crow + k) = make_float4(
+                        acc[i][g * 4], acc[i][g * 4 + 1], acc[i][g * 4 + 2],
+                        acc[i][g * 4 + 3]);
+            } else {
+#pragma unroll
+                for (int j = 0; j < Tl::CV; ++j)
+                    if (k + j < K) crow[k + j] = acc[i][g * Tl::CV + j];
+            }
         }
     }
 
+    // the mirror tile C[k0.., m0..] of a symmetric product (64 x 64 only)
+    if constexpr (BN * (BM + 1) <= SMEM_FLOATS) {
+        if (symmetric && bi != bj) {
+            float* Ts = smem;  // [BN][BM + 1]; the pipeline's last
+                               // barrier freed the staging ring
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const long long m = m0 + 4 * ty + i;
-        if (m >= M) continue;
+            for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const long long k = k0 + 4 * tx + j;
-            if (k < K) C[(size_t)m * K + k] = acc[i][j];
+                for (int j = 0; j < TN; ++j)
+                    Ts[Tl::col(tx, j) * (BM + 1) + Tl::row(ty, i)] =
+                        acc[i][j];
+            __syncthreads();
+            for (int e = threadIdx.x; e < BN * BM; e += THREADS) {
+                const int c = e / BM;
+                const int r = e % BM;
+                if (k0 + c < K && m0 + r < M)
+                    C[(size_t)(k0 + c) * M + m0 + r] = Ts[c * (BM + 1) + r];
+            }
         }
     }
 }
 
+// 128 x 128 tiles where they give at least two a streaming multiprocessor,
+// else 64 x 64; a symmetric product always takes 64 x 64
+int tile_edge(int M, int K, int symmetric) {
+    if (symmetric) return 64;
+    static int sms = 0;  // the card's, asked once
+    if (sms == 0) {
+        int dev = 0, n = 132;
+        if (cudaGetDevice(&dev) == cudaSuccess)
+            cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+        sms = n;
+    }
+    const long long big = (long long)((M + 127) / 128) * ((K + 127) / 128);
+    return big >= 2LL * sms ? 128 : 64;
+}
+
 }  // namespace
 
+// The tile edge lyssa_gram takes for this shape (128 or 64).
+extern "C" int lyssa_gram_tile(int M, int K, int symmetric) {
+    return tile_edge(M, K, symmetric);
+}
+
 // A (p, M) and B (p, K) row-major float32; C (M, K) row-major float32.
-// Returns cudaGetLastError() after the launch.
+// symmetric != 0: B is A (M == K) and C = A^T A from the tiles on or above
+// the diagonal.  Returns cudaGetLastError() after the launch.
 extern "C" int lyssa_gram(const float* A, const float* B, int p, int M, int K,
-                          float* C, void* stream) {
-    if (p < 1 || M < 1 || K < 1)
+                          int symmetric, float* C, void* stream) {
+    if (p < 1 || M < 1 || K < 1 || (symmetric && (M != K || A != B)))
         return static_cast<int>(cudaErrorInvalidValue);
-    const unsigned gy = (unsigned)((K + BN - 1) / BN);
-    if (gy > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((unsigned)((M + BM - 1) / BM), gy);
-    gram_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        A, B, p, M, K, C);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int edge = tile_edge(M, K, symmetric);
+    const unsigned gx = (unsigned)((M + edge - 1) / edge);
+    const unsigned gy = (unsigned)((K + edge - 1) / edge);
+    if (symmetric) {
+        const long long nt = gy;
+        const dim3 grid((unsigned)(nt * (nt + 1) / 2));
+        gram_kernel<64, 64, 4, 4, 16, 4><<<grid, THREADS, 0, s>>>(A, A, p, M, K,
+                                                               1, C);
+    } else {
+        if (gy > 65535u) return static_cast<int>(cudaErrorInvalidValue);
+        if (edge == 128)
+            gram_kernel<128, 128, 8, 8, 8, 2><<<dim3(gx, gy), THREADS, 0, s>>>(
+                A, B, p, M, K, 0, C);
+        else
+            gram_kernel<64, 64, 4, 4, 16, 4><<<dim3(gx, gy), THREADS, 0, s>>>(
+                A, B, p, M, K, 0, C);
+    }
     return static_cast<int>(cudaGetLastError());
 }

@@ -87,7 +87,7 @@ def fs_cold_fused(D: torch.Tensor, X: torch.Tensor, *, lam, t_unroll: int,
     if N == 0:
         return idx, mask, theta, gact, gr, done
     A0 = gram(X, D)                     # (N, K) alpha0 = X^T D
-    G = gram(D, D)                      # (K, K)
+    G = gram(D, D, symmetric=True)      # (K, K)
     lam = float(lam)
     warps = min(_MAX_WARPS, _build.SMEM_PER_BLOCK // lane_smem_bytes(K, tun))
     lib = _build.load()

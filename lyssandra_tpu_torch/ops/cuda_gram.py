@@ -8,7 +8,11 @@ of their port.
 ``gram`` launches the kernel for tensors on the GPU and runs its plain
 PyTorch version, ``gram_reference`` (``A.T @ B``), for tensors on the CPU.
 Both take row-major float32 A (p, M) and B (p, K), any p >= 1, and return
-C (M, K) float32 in full float32 precision (no TF32).
+C (M, K) float32 in full float32 precision (no TF32).  ``symmetric=True``
+asks for the Gram matrix A^T A (B must be A): the kernel then computes
+only the tiles on or above the diagonal and mirrors them, bitwise equal to
+the full product.  The Gram-form OMP kernels (``cuda_omp.omp_fused``) take
+their G = D^T D from it too.
 """
 
 from __future__ import annotations
@@ -23,8 +27,12 @@ def gram_reference(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return A.T @ B
 
 
-def gram(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """C = A^T B for A (p, M) and B (p, K)."""
+def gram(A: torch.Tensor, B: torch.Tensor, *,
+         symmetric: bool = False) -> torch.Tensor:
+    """C = A^T B for A (p, M) and B (p, K); ``symmetric=True`` (B is A)
+    computes one triangle of A^T A and mirrors it."""
+    if symmetric and B is not A:
+        raise ValueError("symmetric=True computes A^T A: pass B = A")
     if A.ndim != 2 or B.ndim != 2 or A.shape[0] != B.shape[0]:
         raise ValueError(
             f"A (p, M) and B (p, K) expected, got {tuple(A.shape)} and "
@@ -43,12 +51,12 @@ def gram(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     if M == 0 or K == 0:
         return C
     A = A.contiguous()
-    B = B.contiguous()
+    B = A if symmetric else B.contiguous()
     lib = _build.load()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.lyssa_gram(A.data_ptr(), B.data_ptr(), p, M, K,
-                              C.data_ptr(), stream)
+                              int(symmetric), C.data_ptr(), stream)
     _build.check(lib, code, "gram kernel")
     gram.launches += 1
     return C

@@ -221,7 +221,7 @@ def group_omp_fused(D: torch.Tensor, X: torch.Tensor, groups, T: int):
     Dp = slot_dictionary(D, members, valid)
     X = X.contiguous()
     A0 = gram(X, Dp)                    # (N, ng*gs) alpha0 = X^T Dp
-    Gp = gram(Dp, Dp)                   # (ng*gs, ng*gs)
+    Gp = gram(Dp, Dp, symmetric=True)   # (ng*gs, ng*gs)
     warps = min(_MAX_WARPS, _build.SMEM_PER_BLOCK // lane_smem_bytes(p, gs, T))
     lib = _build.load()
     with torch.cuda.device(dev):

@@ -7,6 +7,12 @@ GPU, and runs its plain PyTorch version, ``omp_fused_reference``, for
 tensors on the CPU.  Outputs follow ``GreedyResult``: idx (N, T) int32,
 gamma (N, T), err (N,) = the final ||r||^2 of the explicit residual, and
 nsel (N,) int32; entries past nsel are zero.
+
+The kernel runs OMP in the Gram form: before it, each call builds
+G = D^T D with the product kernel (``cuda_gram.gram``, symmetric, one more
+launch counted there) and D^T; a block of lanes computes its alpha0 = D^T x
+in shared memory, and each step reads the support's rows of G.  The plain
+version stays on the residual form, so the two round differently.
 """
 
 from __future__ import annotations
@@ -14,10 +20,13 @@ from __future__ import annotations
 import torch
 
 from lyssandra_tpu_torch import _build
+from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.solvers.greedy import _omp_impl
 
-MAX_P = 512
-_MAX_WARPS = 4          # lanes (warps) per block
+_LANES = (16, 8, 4)     # lanes (warps) a block may carry, most first
+_NARROW_K = 256         # K at or below which a block carries at most 8
+_BP, _STAGE = 8, 2 * 8 * 512   # csrc/omp_fused.cu's slice of p and its
+#                                staging ring of D, in floats
 
 
 def omp_fused_reference(D: torch.Tensor, X: torch.Tensor, *, T: int,
@@ -27,16 +36,39 @@ def omp_fused_reference(D: torch.Tensor, X: torch.Tensor, *, T: int,
     return tuple(_omp_impl(D, X, eps, T=T, eps_mode=eps_mode))
 
 
-def lane_smem_bytes(p: int, T: int) -> int:
-    """Shared memory one lane (warp) of the kernel holds: x, r, the T
-    selected atoms, the T x T factor and five T-vectors."""
-    return 4 * (2 * p + T * p + T * T + 6 * T)
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
-def kernel_supports(p: int, T: int) -> bool:
-    """Whether the kernel takes signals of length p at T steps."""
-    return 1 <= p <= MAX_P and T >= 1 and \
-        lane_smem_bytes(p, T) <= _build.SMEM_PER_BLOCK
+def lane_smem_bytes(p: int, K: int, T: int) -> int:
+    """Shared memory one lane (warp) of the kernel holds: its column of x
+    (p rounded up to the staging slice), alpha0 (K rounded up to 4), the
+    T x T factor and six T-vectors."""
+    return 4 * (_round_up(p, _BP) + _round_up(K, 4) + T * T + 6 * T)
+
+
+def block_smem_bytes(p: int, K: int, T: int, lanes: int) -> int:
+    """Shared memory a block of ``lanes`` lanes takes: theirs and the
+    staging ring of D."""
+    return 4 * _STAGE + lanes * lane_smem_bytes(p, K, T)
+
+
+def block_lanes(p: int, K: int, T: int) -> int:
+    """Lanes a block carries: the most of ``_LANES`` whose block fits the
+    shared memory a block may have (0: none fits), and at most 8 for
+    K <= 256, where smaller blocks ran the denoiser's lanes faster on the
+    H100 (PERF.md, PR 6)."""
+    cap = 8 if K <= _NARROW_K else _LANES[0]
+    return next((n for n in _LANES if n <= cap
+                 and block_smem_bytes(p, K, T, n) <= _build.SMEM_PER_BLOCK),
+                0)
+
+
+def kernel_supports(p: int, K: int, T: int) -> bool:
+    """Whether the kernel takes signals of length p over K atoms at T steps:
+    a block of the fewest lanes fits shared memory.  p has no cap of its
+    own (it enters the state only as x)."""
+    return p >= 1 and K >= 1 and T >= 1 and block_lanes(p, K, T) > 0
 
 
 def omp_fused(D: torch.Tensor, X: torch.Tensor, *, T: int, eps: float = 0.0,
@@ -56,10 +88,10 @@ def omp_fused(D: torch.Tensor, X: torch.Tensor, *, T: int, eps: float = 0.0,
             f"{tuple(X.shape)}")
     p, K = D.shape
     N = X.shape[1]
-    if not kernel_supports(p, T):
+    if not kernel_supports(p, K, T):
         raise ValueError(
-            f"kernel takes p <= {MAX_P} and a T whose per-lane state fits "
-            f"shared memory; got p={p}, T={T}")
+            f"kernel takes a (p, K, T) whose block state fits shared memory; "
+            f"got p={p}, K={K}, T={T}")
     dev = X.device
     idx = torch.zeros((N, T), dtype=torch.int32, device=dev)
     gamma = torch.zeros((N, T), dtype=torch.float32, device=dev)
@@ -69,14 +101,16 @@ def omp_fused(D: torch.Tensor, X: torch.Tensor, *, T: int, eps: float = 0.0,
         return idx, gamma, err, nsel
     D = D.contiguous()
     X = X.contiguous()
-    warps = min(_MAX_WARPS, _build.SMEM_PER_BLOCK // lane_smem_bytes(p, T))
+    G = gram(D, D, symmetric=True)           # (K, K), one launch
+    Dt = D.T.contiguous()                    # (K, p): an atom is a row
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.lyssa_omp_fused(
-            X.data_ptr(), D.data_ptr(), p, K, N, T, float(eps * eps),
-            int(eps_mode), warps, idx.data_ptr(), gamma.data_ptr(),
-            err.data_ptr(), nsel.data_ptr(), stream)
+            X.data_ptr(), D.data_ptr(), Dt.data_ptr(), G.data_ptr(), p, K, N,
+            T, float(eps * eps), int(eps_mode), block_lanes(p, K, T),
+            idx.data_ptr(), gamma.data_ptr(), err.data_ptr(),
+            nsel.data_ptr(), stream)
     _build.check(lib, code, "omp_fused kernel")
     if eps_mode:
         omp_fused.launches_eps += 1

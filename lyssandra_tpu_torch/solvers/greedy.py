@@ -300,7 +300,7 @@ def _fused_supported(D: torch.Tensor, X: torch.Tensor, T: int,
         X.is_cuda and D.is_cuda
         and D.dtype == torch.float32 and X.dtype == torch.float32
         and corr_dtype == "f32"
-        and kernel_supports(D.shape[0], T)
+        and kernel_supports(D.shape[0], D.shape[1], T)
     )
 
 
@@ -551,7 +551,8 @@ def _scatter_dense(res: GreedyResult, K: int) -> torch.Tensor:
 
 
 def group_omp(D, X, groups, T: int, eps: float | None = None, *,
-              dense: bool = True, fused: bool = True, device=None):
+              precision=None, dense: bool = True, fused: bool = True,
+              interpret: bool = False, packed: bool = True, device=None):
     """Group OMP (oracle.group_omp): select argmax_g ||D_g^T r||, least
     squares over the union of the selected groups' atoms.
 
@@ -564,10 +565,13 @@ def group_omp(D, X, groups, T: int, eps: float | None = None, *,
     In T mode on CUDA float32 tensors, when the kernel takes the shape,
     the fused CUDA kernel (``ops/cuda_group.py``) runs all steps;
     ``fused=False`` forces the batched scan, which also serves eps mode,
-    the CPU and other shapes.  The reference's ``precision``,
-    ``interpret`` and ``packed`` keywords choose between TPU variants of
-    one computation and have no counterpart here.
+    the CPU and other shapes.  ``precision``, ``interpret`` and
+    ``packed`` are accepted for the reference's signature and ignored:
+    they choose between TPU variants of one computation, one CUDA kernel
+    serves both of the reference's kernel variants, and the port's
+    numerics are always full float32.
     """
+    del precision, interpret, packed
     device = resolve_device(device, D, X)
     D = _as_f32(D, device)
     X = _as_f32(X, device)

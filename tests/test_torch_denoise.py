@@ -110,6 +110,68 @@ def test_denoiser_mesh_not_ported():
         lt.Denoiser(lt.dct_dictionary(8, 64, device="cpu"), mesh=object())
 
 
+def test_fast_path_follows_the_kernel_envelope(rng, monkeypatch):
+    # On the GPU the two-phase coder is taken only where the fused kernel
+    # takes the shape; elsewhere the blocked Batch-OMP path codes the
+    # patches.  A CPU dictionary posing as a CUDA one (Tensor.is_cuda) and
+    # a stand-in envelope show the routing without a GPU.
+    from lyssandra_tpu_torch.ops import cuda_omp
+    from lyssandra_tpu_torch.ops.cuda_patches import (
+        fused_patch_pipeline_reference,
+    )
+
+    den = lt.Denoiser(lt.dct_dictionary(8, 64, device="cpu"),
+                      lt.DenoiseConfig(sigma=20.0, T_max=16, block=200))
+    assert den._fast_path()              # CPU: the kernel's plain version
+    asked = []
+    monkeypatch.setattr(torch.Tensor, "is_cuda",
+                        property(lambda self: True))
+    monkeypatch.setattr(cuda_omp, "kernel_supports",
+                        lambda *shape: asked.append(shape) or False)
+    assert not den._fast_path()
+    assert asked and asked[-1][0] == 64 and asked[-1][-1] == 10
+
+    def no_fused(*args, **kwargs):
+        raise AssertionError("the two-phase coder ran outside the envelope")
+
+    blocks = []
+
+    def batch_omp(D, X, T, eps=None):
+        blocks.append((X.shape[1], T, eps))
+        return torch.zeros((D.shape[1], X.shape[1]))
+
+    monkeypatch.setattr(tdenoise, "_denoise_fused_impl", no_fused)
+    monkeypatch.setattr(tdenoise, "fused_patch_pipeline",
+                        fused_patch_pipeline_reference)
+    monkeypatch.setattr(tdenoise, "batch_omp", batch_omp)
+    noisy = torch.from_numpy((255.0 * rng.random((24, 24))).astype(
+        np.float32))
+    den(noisy)
+    assert [b[0] for b in blocks] == [200, 89]     # 289 patches of 8 x 8
+    assert all(b[1] == 16 for b in blocks)
+    monkeypatch.setattr(cuda_omp, "kernel_supports", lambda *shape: True)
+    assert den._fast_path()
+
+
+def test_denoise_colour_patches_beyond_p512(rng):
+    # 16 x 16 colour patches (p = 768) denoise on the CPU as the reference
+    # does (its blocked Batch-OMP path off the TPU), within 0.01 dB
+    from lyssandra_tpu.ops.dictionaries import dct_dictionary_color
+
+    img = np.stack([_toy_image(32), _toy_image(32).T, 255 - _toy_image(32)],
+                   axis=-1)
+    noisy = (img + 25.0 * rng.standard_normal(img.shape)).astype(np.float32)
+    D = np.asarray(dct_dictionary_color(16, 256))
+    assert D.shape == (768, 256)
+    cfg = dict(patch=16, sigma=25.0, T_max=12, block=4096)
+    got = lt.denoise(noisy, D, 25.0, cfg=lt.DenoiseConfig(**cfg),
+                     device="cpu").numpy()
+    want = np.asarray(jdenoise.denoise(noisy, D, 25.0,
+                                       cfg=JDenoiseConfig(**cfg)))
+    assert got.shape == img.shape and np.isfinite(got).all()
+    assert abs(_psnr(got, img) - _psnr(want, img)) < 0.01
+
+
 def test_denoise_colour_image(rng):
     # (H, W, 3) images take extract + DC removal over a (3 p^2, K)
     # dictionary; within 0.01 dB of the reference

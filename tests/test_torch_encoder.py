@@ -128,6 +128,24 @@ def test_omp_route_takes_fused_keyword(tiny):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
+@pytest.mark.parametrize("extra", [
+    {"packed": False, "interpret": True},
+    {"packed": True, "interpret": False, "precision": None},
+])
+def test_group_omp_route_takes_reference_keywords(tiny, extra):
+    # the reference's group_omp takes packed=, interpret= and precision=
+    # (TPU variants of one computation); the port accepts and ignores them
+    D, X = tiny
+    params = {"T": 2, "groups": GROUPS}
+    want = SparseEncoder("group_omp", params, device="cpu").encode(X, D)
+    got = SparseEncoder("group_omp", {**params, **extra},
+                        device="cpu").encode(X, D)
+    assert torch.equal(got, want)
+    ref = np.asarray(jlt.SparseEncoder(
+        "group_omp", {**params, "packed": False}).encode(X, D))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+
+
 @pytest.mark.parametrize("kind", ["soft", "hard"])
 def test_threshold_code_matches_jax(tiny, kind):
     D, X = tiny

@@ -65,6 +65,28 @@ def test_gram_matches_reference_product(rng, p, M, K):
                  A, B)
 
 
+@pytest.mark.parametrize("p,K", [(1, 1), (21, 100), (64, 1024), (192, 77),
+                                 (576, 130)])
+def test_gram_symmetric_matches_full_product(rng, p, K):
+    # G = A^T A from one triangle: equal to A.T @ A and symmetric
+    A = rng.standard_normal((p, K)).astype(np.float32)
+    At = _t(A)
+    got = cuda_gram.gram(At, At, symmetric=True)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (K, K)
+    assert torch.equal(got, cuda_gram.gram_reference(At, At))
+    assert torch.equal(got, cuda_gram.gram(At, At))
+    _check_close(got.numpy(), A.T.astype(np.float64) @ A, A, A)
+
+
+@pytest.mark.parametrize("case", ["a copy of A", "another B"])
+def test_gram_symmetric_needs_b_to_be_a(rng, case):
+    A = _t(rng.standard_normal((8, 5)).astype(np.float32))
+    B = A.clone() if case == "a copy of A" else _t(
+        rng.standard_normal((8, 3)).astype(np.float32))
+    with pytest.raises(ValueError, match="symmetric"):
+        cuda_gram.gram(A, B, symmetric=True)
+
+
 @pytest.mark.parametrize("case", [
     "ndim", "p mismatch", "float64", "p = 0", "device"])
 def test_gram_rejects_bad_arguments(case):

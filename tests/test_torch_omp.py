@@ -185,11 +185,78 @@ def test_wrapper_runs_plain_version_on_cpu_and_counts_nothing(rng):
 
 
 def test_kernel_envelope():
-    assert cuda_omp.kernel_supports(64, 8)
-    assert cuda_omp.kernel_supports(512, 32)
-    assert not cuda_omp.kernel_supports(513, 8)
-    assert not cuda_omp.kernel_supports(512, 200)   # state exceeds smem
-    assert cuda_omp.lane_smem_bytes(64, 8) == 4 * (128 + 512 + 64 + 48)
+    # the Gram-form lane state: x, alpha0, the T x T factor, six T-vectors;
+    # the block adds a staging ring of D (two slices of 8 x 512 floats)
+    assert cuda_omp.kernel_supports(64, 1024, 8)      # the bench shape
+    assert cuda_omp.kernel_supports(64, 256, 10)      # the denoiser's K2
+    assert cuda_omp.kernel_supports(512, 1024, 32)
+    assert cuda_omp.kernel_supports(513, 1024, 8)     # no cap on p
+    assert cuda_omp.kernel_supports(768, 256, 10)     # 16 x 16 colour
+    assert not cuda_omp.kernel_supports(512, 1024, 200)  # exceeds smem
+    assert not cuda_omp.kernel_supports(64, 65536, 8)
+    assert not cuda_omp.kernel_supports(64, 1024, 0)
+    assert cuda_omp.lane_smem_bytes(64, 1024, 8) == 4 * (64 + 1024 + 64 + 48)
+    assert cuda_omp.lane_smem_bytes(64, 256, 10) == 4 * (64 + 256 + 100 + 60)
+    assert cuda_omp.lane_smem_bytes(21, 99, 3) == 4 * (24 + 100 + 9 + 18)
+    assert cuda_omp.lane_smem_bytes(13, 99, 3) == 4 * (16 + 100 + 9 + 18)
+    assert cuda_omp.block_smem_bytes(64, 1024, 8, 16) == \
+        4 * 8192 + 16 * 4800
+    assert cuda_omp.block_lanes(64, 1024, 8) == 16
+    assert cuda_omp.block_lanes(64, 256, 10) == 8     # K <= 256: at most 8
+    assert cuda_omp.block_lanes(768, 256, 10) == 8
+    assert cuda_omp.block_lanes(64, 257, 10) == 16
+    assert cuda_omp.block_lanes(64, 8192, 8) == 4     # 33,472 bytes a lane
+    for shape in ((64, 1024, 8), (768, 256, 10), (64, 8192, 8)):
+        lanes = cuda_omp.block_lanes(*shape)
+        assert cuda_omp.block_smem_bytes(*shape, lanes) <= \
+            _build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("eps_mode", [False, True])
+def test_omp_fused_launches_gram_once(monkeypatch, eps_mode):
+    # The wrapper's CUDA route without a GPU: tensors on the meta device
+    # posing as CUDA ones, a stand-in library that records its arguments,
+    # and a stand-in product that counts on gram's own counter.  Each call
+    # builds G once (symmetric) and launches the kernel once, so
+    # launch_counts() shows both.
+    import contextlib
+    import types
+
+    from lyssandra_tpu_torch.ops import cuda_gram, reset_launch_counts
+
+    calls = []
+
+    def gram(A, B, *, symmetric=False):
+        assert symmetric and B is A
+        cuda_gram.gram.launches += 1
+        return torch.empty((A.shape[1], A.shape[1]), device=A.device)
+
+    lib = types.SimpleNamespace(
+        lyssa_omp_fused=lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(cuda_omp, "gram", gram)
+    monkeypatch.setattr(cuda_omp._build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    D = torch.empty((64, 256), device="meta")
+    X = torch.empty((64, 1000), device="meta")
+    reset_launch_counts()
+    idx, gamma, err, nsel = cuda_omp.omp_fused(D, X, T=10, eps=2.0,
+                                               eps_mode=eps_mode)
+    counts = launch_counts()
+    assert counts["gram"] == 1
+    assert counts["omp_fused_eps" if eps_mode else "omp_fused_t"] == 1
+    assert counts["omp_fused_t" if eps_mode else "omp_fused_eps"] == 0
+    assert tuple(idx.shape) == (1000, 10) and tuple(err.shape) == (1000,)
+    (args,) = calls
+    # p, K, N, T, eps^2, eps_mode, lanes
+    assert args[4:11] == (64, 256, 1000, 10, 4.0, int(eps_mode), 8)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_omp.omp_fused(D, X, T=400)
+    assert launch_counts()["gram"] == 0
 
 
 def test_kernel_library_named_by_source_hash():

@@ -63,6 +63,50 @@ def test_denoise_config_matches_reference():
     assert ours == ref
 
 
+@pytest.mark.parametrize("name", ["OMPConfig", "LassoConfig"])
+def test_config_copies_match_reference(name):
+    import lyssandra_tpu.config as jconfig
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(getattr(lt, name)) == fields(getattr(jconfig, name))
+
+
+# top-level names of the reference that the port does not have yet, each
+# with the ROADMAP item that ports it
+NOT_PORTED = {
+    "KSVDConfig": "A2", "KSVDLearner": "A2", "ksvd": "A2",
+    "init_dictionary": "A2",
+    "OnlineDLConfig": "A3", "OnlineDictionaryLearner": "A3",
+    "LCKSVD": "A4", "LCKSVDConfig": "A4", "LinearClassifier": "A4",
+    "LinearSVM": "A4", "SRCClassifier": "A4",
+    "LarsPath": "A5", "lars": "A5", "lars_path": "A5", "lasso_lars": "A5",
+    "FeatureExtractor": "A6", "WhitenConfig": "A6", "Whitener": "A6",
+    "ZCAWhitener": "A6",
+    "Workspace": "A7", "enable_compile_cache": "A7",
+    "MeshConfig": "A8",
+}
+
+
+def test_top_level_names_match_reference():
+    import inspect
+
+    import lyssandra_tpu
+
+    ref = {n for n in dir(lyssandra_tpu) if not n.startswith("_")
+           and not inspect.ismodule(getattr(lyssandra_tpu, n))}
+    missing = sorted(n for n in ref if not hasattr(lt, n)
+                     and n not in NOT_PORTED)
+    assert not missing, f"not in the port and not listed: {missing}"
+    stale = sorted(n for n in NOT_PORTED if hasattr(lt, n))
+    assert not stale, f"listed as not ported but present: {stale}"
+    assert set(NOT_PORTED) <= ref
+    for name in ("contrast_normalize", "normalize_atoms",
+                 "reconstruct_from_patches", "OMPConfig", "LassoConfig"):
+        assert name in lt.__all__
+
+
 @pytest.mark.parametrize("kind", ["smooth", "texture", "edges", "mix"])
 def test_synthetic_image_matches_reference(kind):
     np.testing.assert_array_equal(synthetic_image(kind, 48, seed=7),

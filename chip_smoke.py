@@ -6,28 +6,36 @@
 Phases, in order; any failure raises and exits non-zero:
   1. require a CUDA device; print its name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ and print the build time;
-  3. K1 (fixed-T fused OMP) against its plain version: a well-posed
-     problem (p=64, K=1024, T=8, N=32768: idx and nsel equal, gamma within
-     1e-4) and Gaussian signals (the Batch-OMP benchmark's 262,144 lanes:
-     >= 99.9% of lanes pick the same atoms — summation order differs, and
-     so do near-ties);
+  3. K1 (fixed-T fused OMP, in the Gram form) against its plain version,
+     the residual form: a well-posed problem (p=64, K=1024, T=8, N=32768:
+     idx and nsel equal, gamma within 1e-4), lanes that freeze on a
+     repeated atom, and Gaussian signals (the Batch-OMP benchmark's
+     262,144 lanes: >= 99.9% of lanes pick the same atoms — the two forms
+     round differently, and near-ties follow rounding); its time, the
+     share of it that the G = D^T D product takes, its time at T=1 (the
+     alpha0 product without Gram rows), the lanes a block carries and the
+     kernel's shared memory against the wrapper's formula;
   4. K2 (error-stopped fused OMP) against its plain version on the
      sigma=25 patches of a 512x512 image (eps = 1.15*8*25, T=10): nsel
-     equal on >= 99.9% of lanes;
+     equal on >= 99.9% of lanes; its time and lanes a block;
   5. K3 (fused patch pipeline) against its plain version on that image,
      DC removal / + contrast normalization / + whitening: atol 1e-4;
      then the kernels' envelope at small odd shapes (p, K not multiples of
      32; p=512 and T=32, whose shared memory needs the opt-in above 48 KB;
      lanes done on entry; whitening at p=5): the same checks, and a T the
      kernel cannot hold must raise;
-  5g. the product kernel C = A^T B (csrc/gram.cu, which alpha0 = X^T D
-     and G = D^T D of the Gram-form K4 and K6 come from; run before 5c
-     and 5d) against A.T @ B at K4's shapes (p=64: alpha0 of a 16,384-lane
-     block over K=1024, Gp), K6's (p=192: alpha0 of a 2,048-lane block, G)
-     and ragged edges (p=21, M=500, K=100; p=512, M=1000, K=130; p=576,
-     M=2048, K=1024, K6's alpha0 for 24x24 patches): every
-     entry within twice the float32 dot-product bound, 2 gamma_p ||a_i||
-     ||b_j||; and its time at those main-path shapes;
+  5g. the product kernel C = A^T B (csrc/gram.cu, which G = D^T D of
+     K1/K2 and alpha0 = X^T D and G of the Gram-form K4 and K6 come from;
+     run before 5c and 5d) against A.T @ B at K4's shapes (p=64: alpha0
+     of a 16,384- and a 32,768-lane block over K=1024; Gp, which is also
+     K1's G, symmetric), K6's (p=192: alpha0 of a 2,048-lane block; G,
+     symmetric) and ragged edges (p=21, M=500, K=100; p=512, M=1000,
+     K=130; p=576, M=2048, K=1024, K6's alpha0 for 24x24 patches; p=1;
+     symmetric at p=13, K=67 and p=576, K=1024): every entry within twice
+     the float32 dot-product bound, 2 gamma_p ||a_i|| ||b_j||, and the
+     symmetric form equal to the full product; its time at the main-path
+     shapes against torch.mm(A.t(), B), one call each and in a CUDA graph
+     (the device time without the host's launch overhead);
   5c. K4/K5 (fused group OMP) against its plain version at the group
      shape p=64, K=1024, gs=4 (256 groups), T=4, N=32768: a well-posed
      group-sparse problem (group ids, nsel, idx equal, gamma within 1e-4),
@@ -59,12 +67,14 @@ Phases, in order; any failure raises and exits non-zero:
      and the library pair argmax(|r @ D|);
   6. the main paths, each counted on its own: (a) Batch-OMP (p=64, K=1024,
      T=8, N=262144) through lyssandra_tpu_torch.batch_omp and the
-     sigma=25 denoise of the 512x512 image through Denoiser; (b)
+     sigma=25 denoise of the 512x512 image through Denoiser (one K1, one
+     K2 and their two G products); (b)
      SparseEncoder("group_omp", T=4, 256 groups of 4) on the 262,144
      Batch-OMP signals, 16 blocks of 16384 = 16 group-kernel launches and
      32 product launches (alpha0 and Gp per block), idx agreeing with the
      plain version on >= 99.9% of lanes; (c)
-     SparseEncoder("bomp", T=8) on the same signals, equal to batch_omp;
+     SparseEncoder("bomp", T=8) on the same signals, 16 blocks = 16 K1 and
+     16 product launches, equal to batch_omp;
      (d) SparseEncoder("lasso", lam=0.15) on config 4's 16,384 patches,
      8 blocks of 2048 = 8 K6 launches and 16 product launches, per-lane
      objectives within rtol 1e-4, atol 1e-5 (tests/test_lasso.py's) of
@@ -85,7 +95,11 @@ Phases, in order; any failure raises and exits non-zero:
      every kernel must have launched on one of the paths; the denoised
      image must beat the noisy one by > 3 dB and agree within 0.05 dB with
      a path built from the plain versions;
-  7. times (median of 5, CUDA events) of the kernel path and the plain
+  7. a p=768 colour denoise (16 x 16 x 3 patches of a 64x64 image, K=256)
+     through the route the denoiser's gate picks (K2 where the kernel
+     takes the shape, else blocked Batch-OMP; its launches must say
+     which), PSNR within 0.05 dB of the same denoise on the CPU; then
+     times (median of 5, CUDA events) of the kernel path and the plain
      path, patches/s and denoise seconds, the group encoder's patches/s,
      the bomp encoder (blocks of 16384) against one batch_omp call, and
      the lasso encoder's patches/s on the kernel path, on
@@ -116,6 +130,7 @@ P, K, T = 64, 1024, 8               # the Batch-OMP benchmark's shape
 GS, T_GROUP = 4, 4                  # the group-OMP shape (256 groups)
 BENCH_BLOCK, BENCH_STEPS = 32768, 8  # 262,144 lanes, made as bench.py does
 SIGMA, IMG_SIZE = 25.0, 512
+COLOR_SIZE = 64                     # the p=768 colour denoise's image
 REPS = 5
 P4, K4, LAM, TUN = 192, 1024, 0.15, 28   # config 4: 8x8x3 patches, K=1024
 N4 = 16384                               # config 4's patches, 8 blocks
@@ -272,6 +287,34 @@ def cuda_ms(torch, fn, reps=REPS):
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, n=20, reps=REPS):
+    """Median device time of one fn() with the host's launch overhead
+    taken out: n calls captured in a CUDA graph, replayed `reps` times."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                      # warm the allocator off the default stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / n)
+    del graph
+    return statistics.median(times)
+
+
 def main():
     import torch
 
@@ -295,7 +338,7 @@ def main():
         slot_dictionary, slot_table,
     )
     from lyssandra_tpu_torch.ops.cuda_omp import (
-        omp_fused, omp_fused_reference,
+        block_lanes, block_smem_bytes, omp_fused, omp_fused_reference,
     )
     from lyssandra_tpu_torch.ops.cuda_patches import (
         fused_patch_pipeline_p1, fused_patch_pipeline_reference,
@@ -309,7 +352,10 @@ def main():
     from lyssandra_tpu_torch.solvers.lasso import (
         _fs_cold_supported, host_syncs,
     )
-    from lyssandra_tpu_torch.utils.datasets import synthetic_image
+    from lyssandra_tpu_torch.ops.dictionaries import dct_dictionary_color
+    from lyssandra_tpu_torch.utils.datasets import (
+        synthetic_color_image, synthetic_image,
+    )
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -378,6 +424,36 @@ def main():
                         PEAK_F32)
     k1_ms = cuda_ms(torch, lambda: omp_fused(Db, Xb, T=T))
     k1_plain_ms = cuda_ms(torch, lambda: omp_fused_reference(Db, Xb, T=T))
+    # the wrapper's parts: G = D^T D (one symmetric product launch) and
+    # D^T; and the kernel at T=1, which is the alpha0 product, one
+    # selection and the set-up, without Gram rows
+    k1_parts = {
+        "G = D^T D": cuda_ms(torch, lambda: gram(Db, Db, symmetric=True)),
+        "D^T": cuda_ms(torch, lambda: Db.T.contiguous()),
+        "T=1": cuda_ms(torch, lambda: omp_fused(Db, Xb, T=1)),
+    }
+    k1_lanes = block_lanes(P, K, T)
+    # what bounds it: the steps after the first read one Gram row (4 K
+    # bytes) per selected atom, sum_{t < nsel} t rows a lane; the rest is
+    # mostly the alpha0 product (2 p K flops a lane)
+    rows = float((got[3].double() * (got[3].double() - 1) / 2).sum())
+    k1_row_rate = 4 * K * rows / ((k1_ms - k1_parts["T=1"]) * 1e-3)
+    k1_alpha0_rate = 2 * P * K * NB / (k1_parts["T=1"] * 1e-3)
+    lib = _build.load()
+    for shape in ((P, K, T), (P, 256, 10), (768, 256, 10), (21, 99, 3)):
+        lanes = block_lanes(*shape)
+        check(lib.lyssa_omp_fused_smem_bytes(*shape, lanes)
+              == block_smem_bytes(*shape, lanes),
+              f"K1 shared memory at {shape}: the kernel and block_smem_bytes "
+              f"disagree")
+    print(f"K1 p={P} K={K} T={T} N={NB}: kernel {k1_ms:.3f} ms (G build "
+          f"{k1_parts['G = D^T D']:.4f} ms = "
+          f"{k1_parts['G = D^T D'] / k1_ms:.4f} of it; D^T "
+          f"{k1_parts['D^T']:.4f} ms; at T=1 {k1_parts['T=1']:.3f} ms), "
+          f"plain {k1_plain_ms:.3f} ms; {k1_lanes} lanes a block "
+          f"({block_smem_bytes(P, K, T, k1_lanes)} bytes of shared memory); "
+          f"Gram rows read at {k1_row_rate / 1e12:.3f} TB/s after the first "
+          f"step, alpha0 at {k1_alpha0_rate / 1e12:.3f} TFLOP/s (T=1)")
     del got, want
 
     # --- 4. K2 against its plain version, on the denoise patches
@@ -408,6 +484,9 @@ def main():
         Dd, Xc, T=10, eps=eps, eps_mode=True))
     k2_plain_ms = cuda_ms(torch, lambda: omp_fused_reference(
         Dd, Xc, T=10, eps=eps, eps_mode=True))
+    k2_lanes = block_lanes(P, 256, 10)
+    print(f"K2 p={P} K=256 T=10 N={NP}: kernel {k2_ms:.3f} ms, plain "
+          f"{k2_plain_ms:.3f} ms; {k2_lanes} lanes a block")
     del got, want
 
     # --- 5. K3 against its plain version
@@ -483,9 +562,10 @@ def main():
         check(max(errs) <= 1e-4, f"K3 33x47 p={p} {sorted(kw)}: {errs}")
         print(f"K3 33x47 p={p} {sorted(kw)}: max |d| = {errs}")
 
-    # --- 5g. the product kernel against A.T @ B (K4 and K6 start from it)
-    def gram_case(A, B, what):
-        got = gram(A, B)
+    # --- 5g. the product kernel against A.T @ B (K1, K2, K4 and K6 start
+    # from it)
+    def gram_case(A, B, what, symmetric=False):
+        got = gram(A, B, symmetric=symmetric)
         want = gram_reference(A, B)
         torch.cuda.synchronize()
         p_ = A.shape[0]
@@ -498,41 +578,60 @@ def main():
               and bool((err <= 2.0 * gamma_p * scale).all()),
               f"gram {what}: max error {float(err.max())}, relative to "
               f"||a_i|| ||b_j|| {rel} (limit {2.0 * gamma_p})")
+        if symmetric:
+            check(torch.equal(got, gram(A, B)),
+                  f"gram {what}: one triangle mirrored differs from the full "
+                  f"product")
         print(f"gram {what}: max |dC| {float(err.max()):.3g}, relative to "
-              f"||a_i|| ||b_j|| {rel:.3g} (limit {2.0 * gamma_p:.3g})")
+              f"||a_i|| ||b_j|| {rel:.3g} (limit {2.0 * gamma_p:.3g})"
+              + ("; equal to the full product" if symmetric else ""))
         return float(err.max()), rel
 
     rng = np.random.default_rng(9)
     gram_err = gram_rel = 0.0
-    for p_, M_, K_ in ((21, 500, 100), (512, 1000, 130), (576, 2048, 1024)):
-        A_ = rng.standard_normal((p_, M_)).astype(np.float32)
-        B_ = rng.standard_normal((p_, K_)).astype(np.float32)
-        e_, r_ = gram_case(dt(A_), dt(B_), f"ragged p={p_} M={M_} K={K_}")
+    for p_, M_, K_ in ((21, 500, 100), (512, 1000, 130), (576, 2048, 1024),
+                       (1, 33, 7), (13, 67, 67)):
+        A_ = dt(rng.standard_normal((p_, M_)).astype(np.float32))
+        B_ = dt(rng.standard_normal((p_, K_)).astype(np.float32))
+        e_, r_ = gram_case(A_, B_, f"ragged p={p_} M={M_} K={K_}")
         gram_err, gram_rel = max(gram_err, e_), max(gram_rel, r_)
+        if M_ == K_ or p_ == 576:
+            e_, r_ = gram_case(B_, B_, f"ragged symmetric p={p_} K={K_}",
+                               symmetric=True)
+            gram_err, gram_rel = max(gram_err, e_), max(gram_rel, r_)
     Dc4, Xc4 = config4_problem()
     Dc4, Xc4 = dt(Dc4), dt(Xc4)
-    # the slot dictionary of groups of GS consecutive atoms is D itself
-    gram_shapes = (("K4 alpha0", Xb[:, :16384].contiguous(), Db),
-                   ("K4 Gp", Db, Db),
-                   ("K6 alpha0", Xc4[:, :2048].contiguous(), Dc4),
-                   ("K6 G", Dc4, Dc4))
+    # the slot dictionary of groups of GS consecutive atoms is D itself;
+    # K1's G = D^T D is K4's Gp at the bench shape
+    gram_shapes = (("K4 alpha0", Xb[:, :16384].contiguous(), Db, False),
+                   ("K4 alpha0", Xb[:, :32768].contiguous(), Db, False),
+                   ("K4 Gp, K1 G", Db, Db, True),
+                   ("K6 alpha0", Xc4[:, :2048].contiguous(), Dc4, False),
+                   ("K6 G", Dc4, Dc4, True))
     gram_times = []
-    for what, A_, B_ in gram_shapes:
-        e_, r_ = gram_case(A_, B_, f"{what} p={A_.shape[0]} M={A_.shape[1]} "
-                           f"K={B_.shape[1]}")
-        gram_err, gram_rel = max(gram_err, e_), max(gram_rel, r_)
+    for what, A_, B_, sym in gram_shapes:
         p_, M_, K_ = A_.shape[0], A_.shape[1], B_.shape[1]
-        ms = cuda_ms(torch, lambda: gram(A_, B_))
+        e_, r_ = gram_case(A_, B_, f"{what} p={p_} M={M_} K={K_}",
+                           symmetric=sym)
+        gram_err, gram_rel = max(gram_err, e_), max(gram_rel, r_)
+        ms = cuda_ms(torch, lambda: gram(A_, B_, symmetric=sym))
         plain = cuda_ms(torch, lambda: gram_reference(A_, B_))
         lib_ms = cuda_ms(torch, lambda: torch.mm(A_.t(), B_))
+        g_ms = graph_ms(torch, lambda: gram(A_, B_, symmetric=sym))
+        g_lib = graph_ms(torch, lambda: torch.mm(A_.t(), B_))
         bnd = bound_ms(4 * (p_ * M_ + p_ * K_ + M_ * K_), 2 * p_ * M_ * K_,
                        PEAK_F32)
         gram_times.append({"shape": what, "p": p_, "M": M_, "K": K_,
+                           "symmetric": sym,
+                           "tile": lib.lyssa_gram_tile(M_, K_, int(sym)),
                            "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                           "graph_ms": g_ms, "library_graph_ms": g_lib,
                            "bound_ms": bnd[0], "bound_by": bnd[1]})
-        print(f"gram {what} p={p_} M={M_} K={K_}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, library {lib_ms:.4f} ms; bound {bnd[0]:.4f} "
-              f"ms ({bnd[1]})")
+        print(f"gram {what} p={p_} M={M_} K={K_}"
+              + (" symmetric" if sym else "")
+              + f": kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"{lib_ms:.4f} ms; in a CUDA graph kernel {g_ms:.4f} ms, "
+              f"library {g_lib:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
 
     # --- 5c. K4/K5 against its plain version, then its envelope
     def group_case(D, X, groups, T_, what, agree_min=1.0):
@@ -830,6 +929,10 @@ def main():
     torch.cuda.synchronize()
     launches = lt.launch_counts()
     print(f"path (a) batch_omp + denoise launches: {launches}")
+    # one K1 and one K2 launch, each after its G = D^T D product
+    check(launches["omp_fused_t"] == 1 and launches["omp_fused_eps"] == 1
+          and launches["gram"] == 2,
+          f"path (a): K1, K2 and their product launches {launches}")
 
     group_enc = lt.SparseEncoder("group_omp", {"T": T_GROUP,
                                                "groups": groups})
@@ -861,8 +964,11 @@ def main():
     torch.cuda.synchronize()
     launches_b = lt.launch_counts()
     print(f"path (c) SparseEncoder('bomp') launches: {launches_b}")
-    check(launches_b["omp_fused_t"] == Xb.shape[1] // bomp_enc.block,
-          "bomp encoder launches")
+    n_blocks = Xb.shape[1] // bomp_enc.block
+    check(launches_b["omp_fused_t"] == n_blocks
+          and launches_b["gram"] == n_blocks,
+          f"bomp encoder launches {launches_b}: {n_blocks} K1 and "
+          f"{n_blocks} product launches expected")
     for a, b in zip(bres, res):
         check(torch.equal(a, b), "bomp encoder differs from batch_omp")
     print("bomp encoder equals batch_omp on all lanes")
@@ -1094,6 +1200,38 @@ def main():
     check(p_out > p_noisy + 3.0, "denoise gains less than 3 dB")
     check(abs(p_out - p_plain) <= 0.05, "kernel and plain denoise differ")
 
+    # --- 7. a p=768 colour denoise: 16 x 16 x 3 patches of a small image,
+    # through whichever route the denoiser's gate picks (the two-phase coder
+    # on K2 where the kernel takes the shape, else blocked Batch-OMP),
+    # against the same denoise on the CPU
+    rgb = synthetic_color_image("texture", COLOR_SIZE, seed=0)
+    noisy_rgb = (rgb + SIGMA * np.random.default_rng(1).standard_normal(
+        rgb.shape)).astype(np.float32)
+    D768 = dct_dictionary_color(16, 256, device="cpu")
+    cfg768 = lt.DenoiseConfig(patch=16, sigma=SIGMA)
+    den768 = Denoiser(D768.to(dev), cfg768)
+    on_k2 = den768._fast_path()
+    lt.reset_launch_counts()
+    out768 = den768(dt(noisy_rgb))
+    torch.cuda.synchronize()
+    launches768 = lt.launch_counts()
+    check(launches768["omp_fused_eps"] == int(on_k2)
+          and launches768["gram"] == int(on_k2),
+          f"p=768 denoise: route {'K2' if on_k2 else 'batch_omp'}, launches "
+          f"{launches768}")
+    out768_cpu = Denoiser(D768, cfg768)(torch.from_numpy(noisy_rgb))
+    p768 = lt.psnr(out768.cpu(), rgb)
+    p768_cpu = lt.psnr(out768_cpu, rgb)
+    check(tuple(out768.shape) == rgb.shape
+          and bool(torch.isfinite(out768).all())
+          and abs(p768 - p768_cpu) <= 0.05,
+          f"p=768 denoise: PSNR {p768} on the GPU, {p768_cpu} on the CPU")
+    print(f"denoise {COLOR_SIZE}^2 colour, 16 x 16 patches (p=768, K=256): "
+          f"route {'K2 (two-phase)' if on_k2 else 'blocked batch_omp'}, "
+          f"launches {launches768}; PSNR noisy "
+          f"{lt.psnr(noisy_rgb, rgb):.4f} dB, GPU {p768:.4f} dB, CPU "
+          f"{p768_cpu:.4f} dB")
+
     # --- 7. times
     N = Xb.shape[1]
     bomp_ms = cuda_ms(torch, lambda: lt.batch_omp(Db, Xb, T=T, dense=False))
@@ -1161,13 +1299,17 @@ def main():
          "launches": launches["omp_fused_t"] + launches_b["omp_fused_t"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "lanes_per_block": k1_lanes, "parts_ms": k1_parts,
+         "gram_rows_tb_per_s": k1_row_rate / 1e12,
+         "alpha0_tflop_per_s": k1_alpha0_rate / 1e12},
         {"name": "omp_fused (eps exit)", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
          "replaces": "lyssandra_tpu/ops/pallas_omp.py:235",
          "launches": launches["omp_fused_eps"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "bound_by": k2_bound[1], "library_ms": None,
+         "lanes_per_block": k2_lanes},
         {"name": "fused_patches", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/fused_patches.cu",
          "replaces": "lyssandra_tpu/ops/pallas_patches.py:37",
@@ -1197,12 +1339,13 @@ def main():
          "bf16_max_abs_err": k7_err_bf16, "bf16_bound_ms": k7_bound_bf16[0],
          "bf16_bound_by": k7_bound_bf16[1]},
         # times at K4's alpha0 shape (a group-encoder block); by_shape has
-        # all four main-path shapes
+        # every main-path shape
         {"name": "gram", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/gram.cu",
-         "replaces": "lyssandra_tpu/ops/pallas_fs.py:53 and "
-                     "lyssandra_tpu/ops/pallas_group.py:52,253 (their D^T x)",
-         "launches": launches_g["gram"] + launches_d["gram"],
+         "replaces": "lyssandra_tpu/ops/pallas_fs.py:53, "
+                     "lyssandra_tpu/ops/pallas_group.py:52,253 and "
+                     "lyssandra_tpu/ops/pallas_omp.py:79,235 (their D^T x)",
+         "launches": sum(counts["gram"] for counts in paths),
          "max_abs_err": gram_err, "max_rel_err": gram_rel,
          "ms": gram_times[0]["ms"], "plain_ms": gram_times[0]["plain_ms"],
          "bound_ms": gram_times[0]["bound_ms"],

@@ -13,9 +13,11 @@
 // 4 (p M + p K + M K) bytes (at p=64, M=16,384, K=1,024: 2.1 GFLOP, 0.032 ms
 // at the 67 TFLOP/s float32 peak, against 72 MB, 0.021 ms at 3.35 TB/s).
 // So the design feeds the fma units: a block of 256 threads owns a tile of
-// C and walks p in slices, staged in shared memory by cp.async through a
-// ring of four buffers, so the loads of the next three slices overlap this
-// slice's fmas, with one barrier a slice (csrc/gemm_tile.cuh).  The tile is chosen by problem size:
+// C and walks p in slices of 16 or 32 rows, staged in shared memory by
+// cp.async into two buffers, so the next slice's loads overlap this
+// slice's fmas, with one barrier a slice (csrc/gemm_tile.cuh; two buffers
+// of deeper slices ran 2-6% faster on the H100 than four of shallower
+// ones, PERF.md, PR 6).  The tile is chosen by problem size:
 //   - 128 x 128 with 8 x 8 outputs a thread (one 16-byte shared-memory load
 //     of A and of B per 32 fmas), where it gives at least two tiles per SM;
 //   - 64 x 64 with 4 x 4 a thread otherwise (a 1,024^2 Gram matrix is only
@@ -35,7 +37,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int NSTAGE = 4;             // staged slices in the ring
+constexpr int NSTAGE = 2;             // staged slices in the ring
 constexpr int SMEM_FLOATS = 8192;     // NSTAGE BP (BM + BN) of both configs
 
 template <int BM, int BN, int TM, int TN, int BP, int MIN_BLOCKS>
@@ -166,15 +168,15 @@ extern "C" int lyssa_gram(const float* A, const float* B, int p, int M, int K,
     if (symmetric) {
         const long long nt = gy;
         const dim3 grid((unsigned)(nt * (nt + 1) / 2));
-        gram_kernel<64, 64, 4, 4, 16, 4><<<grid, THREADS, 0, s>>>(A, A, p, M, K,
+        gram_kernel<64, 64, 4, 4, 32, 4><<<grid, THREADS, 0, s>>>(A, A, p, M, K,
                                                                1, C);
     } else {
         if (gy > 65535u) return static_cast<int>(cudaErrorInvalidValue);
         if (edge == 128)
-            gram_kernel<128, 128, 8, 8, 8, 2><<<dim3(gx, gy), THREADS, 0, s>>>(
+            gram_kernel<128, 128, 8, 8, 16, 2><<<dim3(gx, gy), THREADS, 0, s>>>(
                 A, B, p, M, K, 0, C);
         else
-            gram_kernel<64, 64, 4, 4, 16, 4><<<dim3(gx, gy), THREADS, 0, s>>>(
+            gram_kernel<64, 64, 4, 4, 32, 4><<<dim3(gx, gy), THREADS, 0, s>>>(
                 A, B, p, M, K, 0, C);
     }
     return static_cast<int>(cudaGetLastError());

@@ -26,17 +26,20 @@
 // What bounds it on an H100: in the Gram form the work is alpha0 (2 p K
 // flops a lane) and, per step, one Gram row per selected atom (2 K t flops
 // and 4 K t bytes).  The design:
-//   - A block owns LANES lanes (16 by default), one warp each.  It first
-//     stages their x in shared memory, then computes their LANES x K alpha0
-//     with the register-tiled product of csrc/gemm_tile.cuh, streaming D
-//     through shared memory once a block (not once a lane and step, as the
-//     residual form did).  alpha0 stays in shared memory (4 KB a lane at
-//     K=1,024) and never reaches device memory.  In EPS_MODE a block whose
-//     lanes are all done on entry skips the product.
+//   - A block owns LANES lanes (16; 8 where K <= 256), one warp each.  It
+//     first stages their x in shared memory, then computes their LANES x K
+//     alpha0 with the register-tiled product of csrc/gemm_tile.cuh,
+//     streaming D through shared memory in slices of 8 rows, two buffers,
+//     once a block (not once a lane and step, as the residual form did).
+//     alpha0 stays in shared memory (4 KB a lane at K=1,024) and never
+//     reaches device memory.  In EPS_MODE a block whose lanes are all done
+//     on entry skips the product.
 //   - Each step reads the t Gram rows of the support from L2 (G is 4 MB at
 //     K=1,024, resident in the 50 MB L2), 16-byte loads, four in flight a
 //     thread, and fuses the first-index argmax into the same pass.  These
-//     reads (about 28 rows of 4 KB a lane at T=8) are what bounds it.
+//     reads (28 rows of 4 KB a lane at T=8) bound the step loop: at the
+//     bench shape they run at about 8 TB/s, and the alpha0 product, about a
+//     third of the time, at about 16 TFLOP/s (PERF.md, PR 6).
 //   - The residual for err reads the support's atoms from Dt = D^T (K, p),
 //     one contiguous row an atom.
 // The per-lane state — alpha0 (K), Linv (T x T) and six T-vectors — sits

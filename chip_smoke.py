@@ -623,7 +623,6 @@ def main():
                        PEAK_F32)
         gram_times.append({"shape": what, "p": p_, "M": M_, "K": K_,
                            "symmetric": sym,
-                           "tile": lib.lyssa_gram_tile(M_, K_, int(sym)),
                            "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
                            "graph_ms": g_ms, "library_graph_ms": g_lib,
                            "bound_ms": bnd[0], "bound_by": bnd[1]})

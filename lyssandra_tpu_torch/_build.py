@@ -148,8 +148,6 @@ def load() -> ctypes.CDLL:
     lib.lyssa_select_smem_bytes.restype = ctypes.c_size_t
     lib.lyssa_omp_fused_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.lyssa_omp_fused_smem_bytes.restype = ctypes.c_size_t
-    lib.lyssa_gram_tile.argtypes = [_I, _I, _I]
-    lib.lyssa_gram_tile.restype = ctypes.c_int
     return lib
 
 

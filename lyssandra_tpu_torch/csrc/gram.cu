@@ -12,20 +12,20 @@
 // What bounds it on an H100: the operations, 2 p M K flops against
 // 4 (p M + p K + M K) bytes (at p=64, M=16,384, K=1,024: 2.1 GFLOP, 0.032 ms
 // at the 67 TFLOP/s float32 peak, against 72 MB, 0.021 ms at 3.35 TB/s).
-// So the design feeds the fma units: a block of 256 threads owns a tile of
-// C and walks p in slices of 16 or 32 rows, staged in shared memory by
-// cp.async into two buffers, so the next slice's loads overlap this
-// slice's fmas, with one barrier a slice (csrc/gemm_tile.cuh; two buffers
-// of deeper slices ran 2-6% faster on the H100 than four of shallower
-// ones, PERF.md, PR 6).  The tile is chosen by problem size:
-//   - 128 x 128 with 8 x 8 outputs a thread (one 16-byte shared-memory load
-//     of A and of B per 32 fmas), where it gives at least two tiles per SM;
-//   - 64 x 64 with 4 x 4 a thread otherwise (a 1,024^2 Gram matrix is only
-//     64 tiles of 128^2, too few for 132 SMs), at most 64 registers a
-//     thread so that four blocks share an SM.
-// A symmetric product computes only the 64 x 64 tiles on or above the
-// diagonal and writes each off-diagonal tile twice, the mirror through
-// shared memory so that both writes are coalesced.  fma(a, b, c) =
+// So the design feeds the fma units: a block of 256 threads owns a
+// 128 x 128 tile of C, 8 x 8 outputs a thread (one 16-byte shared-memory
+// load of A and of B per 32 fmas), and walks p in slices of 16 rows,
+// staged in shared memory by cp.async into two buffers, so the next
+// slice's loads overlap this slice's fmas, with one barrier a slice
+// (csrc/gemm_tile.cuh).  At every main-path shape this tile ran faster on
+// the H100 than 64 x 64 tiles at 4 x 4 a thread, even where it gives
+// fewer blocks than SMs, and two buffers of deeper slices faster than
+// three or four of shallower ones (PERF.md, PR 6).
+// A symmetric product computes only the tiles on or above the diagonal,
+// 64 x 64 at 4 x 4 a thread (a 1,024^2 Gram matrix is only 36 such tiles
+// of 128^2, against 136 of 64^2 for 132 SMs), slices of 32 rows, and
+// writes each off-diagonal tile twice, the mirror through shared memory
+// so that both writes are coalesced.  fma(a, b, c) =
 // fma(b, a, c), so the mirror is bitwise the entry the other triangle would
 // have computed.  Rows past M, columns past K and slices past p are zero
 // filled, so any M, K and p >= 1 run.
@@ -36,16 +36,15 @@
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int NSTAGE = 2;             // staged slices in the ring
-constexpr int SMEM_FLOATS = 8192;     // NSTAGE BP (BM + BN) of both configs
+constexpr int SMEM_FLOATS = 8192;     // NSTAGE BP (BM + BN) of both tiles
 
 template <int BM, int BN, int TM, int TN, int BP, int MIN_BLOCKS>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__((BM / TM) * (BN / TN), MIN_BLOCKS)
 gram_kernel(const float* __restrict__ A, const float* __restrict__ B, int p,
             int M, int K, int symmetric, float* __restrict__ C) {
     using Tl = lyssa::Tile<BM, BN, TM, TN>;
-    static_assert(Tl::NT == THREADS, "one output tile per block");
+    constexpr int NT = Tl::NT;
     static_assert(NSTAGE * BP * (BM + BN) <= SMEM_FLOATS, "staging ring");
     __shared__ __align__(16) float smem[SMEM_FLOATS];
     float* As = smem;                       // [NSTAGE][BP][BM]
@@ -78,10 +77,10 @@ gram_kernel(const float* __restrict__ A, const float* __restrict__ B, int p,
     lyssa::pipeline<NSTAGE>(
         (p + BP - 1) / BP,
         [&](int s, int buf) {
-            lyssa::stage_tile<BP, BM, THREADS>(As + buf * BP * BM, A, p, M,
-                                               s * BP, m0, va);
-            lyssa::stage_tile<BP, BN, THREADS>(Bs + buf * BP * BN, B, p, K,
-                                               s * BP, k0, vb);
+            lyssa::stage_tile<BP, BM, NT>(As + buf * BP * BM, A, p, M,
+                                          s * BP, m0, va);
+            lyssa::stage_tile<BP, BN, NT>(Bs + buf * BP * BN, B, p, K,
+                                          s * BP, k0, vb);
         },
         [&](int, int buf) {
             Tl::template mma<BP>(acc, As + buf * BP * BM, BM,
@@ -122,7 +121,7 @@ gram_kernel(const float* __restrict__ A, const float* __restrict__ B, int p,
                     Ts[Tl::col(tx, j) * (BM + 1) + Tl::row(ty, i)] =
                         acc[i][j];
             __syncthreads();
-            for (int e = threadIdx.x; e < BN * BM; e += THREADS) {
+            for (int e = threadIdx.x; e < BN * BM; e += NT) {
                 const int c = e / BM;
                 const int r = e % BM;
                 if (k0 + c < K && m0 + r < M)
@@ -132,27 +131,7 @@ gram_kernel(const float* __restrict__ A, const float* __restrict__ B, int p,
     }
 }
 
-// 128 x 128 tiles where they give at least two a streaming multiprocessor,
-// else 64 x 64; a symmetric product always takes 64 x 64
-int tile_edge(int M, int K, int symmetric) {
-    if (symmetric) return 64;
-    static int sms = 0;  // the card's, asked once
-    if (sms == 0) {
-        int dev = 0, n = 132;
-        if (cudaGetDevice(&dev) == cudaSuccess)
-            cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-        sms = n;
-    }
-    const long long big = (long long)((M + 127) / 128) * ((K + 127) / 128);
-    return big >= 2LL * sms ? 128 : 64;
-}
-
 }  // namespace
-
-// The tile edge lyssa_gram takes for this shape (128 or 64).
-extern "C" int lyssa_gram_tile(int M, int K, int symmetric) {
-    return tile_edge(M, K, symmetric);
-}
 
 // A (p, M) and B (p, K) row-major float32; C (M, K) row-major float32.
 // symmetric != 0: B is A (M == K) and C = A^T A from the tiles on or above
@@ -162,22 +141,17 @@ extern "C" int lyssa_gram(const float* A, const float* B, int p, int M, int K,
     if (p < 1 || M < 1 || K < 1 || (symmetric && (M != K || A != B)))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int edge = tile_edge(M, K, symmetric);
-    const unsigned gx = (unsigned)((M + edge - 1) / edge);
-    const unsigned gy = (unsigned)((K + edge - 1) / edge);
     if (symmetric) {
-        const long long nt = gy;
+        const long long nt = (K + 63) / 64;
         const dim3 grid((unsigned)(nt * (nt + 1) / 2));
-        gram_kernel<64, 64, 4, 4, 32, 4><<<grid, THREADS, 0, s>>>(A, A, p, M, K,
-                                                               1, C);
+        gram_kernel<64, 64, 4, 4, 32, 4><<<grid, 256, 0, s>>>(A, A, p, M, K,
+                                                              1, C);
     } else {
-        if (gy > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-        if (edge == 128)
-            gram_kernel<128, 128, 8, 8, 16, 2><<<dim3(gx, gy), THREADS, 0, s>>>(
-                A, B, p, M, K, 0, C);
-        else
-            gram_kernel<64, 64, 4, 4, 32, 4><<<dim3(gx, gy), THREADS, 0, s>>>(
-                A, B, p, M, K, 0, C);
+        const dim3 grid((unsigned)((M + 127) / 128),
+                        (unsigned)((K + 127) / 128));
+        if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
+        gram_kernel<128, 128, 8, 8, 16, 2><<<grid, 256, 0, s>>>(A, B, p, M,
+                                                                K, 0, C);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,9 @@
 committed kernels, in turns, in one process tree on one GPU.
 
     python3 tools/kernel_variants.py omp     # K1/K2 staging of alpha0
+    python3 tools/kernel_variants.py omp2    # K1/K2 lanes and registers
     python3 tools/kernel_variants.py gram    # the product's staging ring
+    python3 tools/kernel_variants.py gram2   # the product's tile for A^T B
 
 Each variant is a copy of lyssandra_tpu_torch/ under _archive/variants/
 (listed in .gitignore) with a few constants substituted; every copy builds
@@ -25,6 +27,8 @@ OUT = os.path.join(ROOT, "_archive", "variants")
 OMP = "lyssandra_tpu_torch/csrc/omp_fused.cu"
 OMP_PY = "lyssandra_tpu_torch/ops/cuda_omp.py"
 GRAM = "lyssandra_tpu_torch/csrc/gram.cu"
+BIG_LAUNCH = """        gram_kernel<128, 128, 8, 8, 16, 2><<<grid, 256, 0, s>>>(A, B, p, M,
+                                                                K, 0, C);"""
 
 VARIANTS = {
     "omp": {
@@ -38,6 +42,16 @@ VARIANTS = {
             OMP: [("constexpr int NSTAGE = 2;", "constexpr int NSTAGE = 3;")],
             OMP_PY: [("_BP, _STAGE = 8, 2 * 8 * 512",
                       "_BP, _STAGE = 8, 3 * 8 * 512")]},
+    },
+    "omp2": {
+        "committed": {},
+        "8 lanes a block, 3 blocks an SM (85 registers)": {
+            OMP: [("__launch_bounds__(32 * LANES, 1024 / (32 * LANES))",
+                   "__launch_bounds__(32 * LANES, 768 / (32 * LANES))")],
+            OMP_PY: [("_LANES = (16, 8, 4) ", "_LANES = (8, 4)     ")]},
+        "16 lanes a block, no register cap": {
+            OMP: [("__launch_bounds__(32 * LANES, 1024 / (32 * LANES))",
+                   "__launch_bounds__(32 * LANES, 1)")]},
     },
     "gram": {
         "committed": {},
@@ -56,6 +70,23 @@ VARIANTS = {
         "64^2 tiles, 3 blocks an SM": {
             GRAM: [("gram_kernel<64, 64, 4, 4, 32, 4>",
                     "gram_kernel<64, 64, 4, 4, 32, 3>")]},
+    },
+    "gram2": {
+        "committed": {},
+        "64^2 tiles below two 128^2 tiles an SM": {
+            GRAM: [(BIG_LAUNCH, BIG_LAUNCH.replace(
+                "        gram_kernel<128, 128, 8, 8, 16, 2>",
+                "        if (grid.x * grid.y < 264)\n"
+                "            gram_kernel<64, 64, 4, 4, 32, 4><<<dim3((M + 63) "
+                "/ 64, (K + 63) / 64), 256, 0, s>>>(A, B, p, M, K, 0, C);\n"
+                "        else gram_kernel<128, 128, 8, 8, 16, 2>"))]},
+        "128^2 tiles at 8 x 4 a thread (512 threads) below two an SM": {
+            GRAM: [(BIG_LAUNCH, BIG_LAUNCH.replace(
+                "        gram_kernel<128, 128, 8, 8, 16, 2>",
+                "        if (grid.x * grid.y < 264)\n"
+                "            gram_kernel<128, 128, 8, 4, 16, 2><<<grid, 512, 0, "
+                "s>>>(A, B, p, M, K, 0, C);\n"
+                "        else gram_kernel<128, 128, 8, 8, 16, 2>"))]},
     },
 }
 
@@ -98,11 +129,12 @@ def measure(tree, tag, suite):
     assert cuda_omp.__file__.startswith(tree), cuda_omp.__file__
     dev = torch.device("cuda", 0)
     out = []
-    if suite == "gram":
+    if suite.startswith("gram"):
         rng = np.random.default_rng(0)
         for p, M, K, sym in ((64, 16384, 1024, 0), (64, 32768, 1024, 0),
                              (64, 1024, 1024, 1), (192, 2048, 1024, 0),
-                             (192, 1024, 1024, 1), (576, 2048, 1024, 0)):
+                             (192, 1024, 1024, 1), (576, 2048, 1024, 0),
+                             (2048, 2048, 1024, 0)):
             B = torch.as_tensor(rng.standard_normal((p, K)).astype(
                 np.float32), device=dev)
             A = B if sym else torch.as_tensor(rng.standard_normal(

@@ -4,6 +4,7 @@ committed kernels, in turns, in one process tree on one GPU.
 
     python3 tools/kernel_variants.py omp     # K1/K2 staging of alpha0
     python3 tools/kernel_variants.py omp2    # K1/K2 lanes and registers
+    python3 tools/kernel_variants.py omp3    # K2's narrow passes and lanes
     python3 tools/kernel_variants.py gram    # the product's staging ring
     python3 tools/kernel_variants.py gram2   # the product's tile for A^T B
 
@@ -52,6 +53,15 @@ VARIANTS = {
         "16 lanes a block, no register cap": {
             OMP: [("__launch_bounds__(32 * LANES, 1024 / (32 * LANES))",
                    "__launch_bounds__(32 * LANES, 1)")]},
+    },
+    "omp3": {
+        "committed": {},
+        "512-column passes at every K": {
+            OMP: [("const bool wide = K > BN_WIDE / 2;",
+                   "const bool wide = true;")]},
+        "16 lanes a block at K <= 256": {
+            OMP_PY: [("cap = 8 if K <= _NARROW_K else _LANES[0]",
+                      "cap = _LANES[0]")]},
     },
     "gram": {
         "committed": {},

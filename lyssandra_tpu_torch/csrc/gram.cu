@@ -20,7 +20,7 @@
 // (csrc/gemm_tile.cuh).  At every main-path shape this tile ran faster on
 // the H100 than 64 x 64 tiles at 4 x 4 a thread, even where it gives
 // fewer blocks than SMs, and two buffers of deeper slices faster than
-// three or four of shallower ones (PERF.md, PR 6).
+// three or four of shallower ones (PERF.md, section 6).
 // A symmetric product computes only the tiles on or above the diagonal,
 // 64 x 64 at 4 x 4 a thread (a 1,024^2 Gram matrix is only 36 such tiles
 // of 128^2, against 136 of 64^2 for 132 SMs), slices of 32 rows, and

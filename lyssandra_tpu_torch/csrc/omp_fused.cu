@@ -39,7 +39,7 @@
 //     thread, and fuses the first-index argmax into the same pass.  These
 //     reads (28 rows of 4 KB a lane at T=8) bound the step loop: at the
 //     bench shape they run at about 8 TB/s, and the alpha0 product, about a
-//     third of the time, at about 16 TFLOP/s (PERF.md, PR 6).
+//     third of the time, at about 16 TFLOP/s (PERF.md, section 6).
 //   - The residual for err reads the support's atoms from Dt = D^T (K, p),
 //     one contiguous row an atom.
 // The per-lane state — alpha0 (K), Linv (T x T) and six T-vectors — sits

@@ -57,7 +57,7 @@ def block_lanes(p: int, K: int, T: int) -> int:
     """Lanes a block carries: the most of ``_LANES`` whose block fits the
     shared memory a block may have (0: none fits), and at most 8 for
     K <= 256, where smaller blocks ran the denoiser's lanes faster on the
-    H100 (PERF.md, PR 6)."""
+    H100 (PERF.md, section 6)."""
     cap = 8 if K <= _NARROW_K else _LANES[0]
     return next((n for n in _LANES if n <= cap
                  and block_smem_bytes(p, K, T, n) <= _build.SMEM_PER_BLOCK),

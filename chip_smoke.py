@@ -619,8 +619,12 @@ def main():
         lib_ms = cuda_ms(torch, lambda: torch.mm(A_.t(), B_))
         g_ms = graph_ms(torch, lambda: gram(A_, B_, symmetric=sym))
         g_lib = graph_ms(torch, lambda: torch.mm(A_.t(), B_))
-        bnd = bound_ms(4 * (p_ * M_ + p_ * K_ + M_ * K_), 2 * p_ * M_ * K_,
-                       PEAK_F32)
+        # A^T A from one triangle: A read once, p K (K + 1) flops, both
+        # halves of C written
+        bnd = (bound_ms(4 * (p_ * K_ + K_ * K_), p_ * K_ * (K_ + 1),
+                        PEAK_F32) if sym else
+               bound_ms(4 * (p_ * M_ + p_ * K_ + M_ * K_),
+                        2 * p_ * M_ * K_, PEAK_F32))
         gram_times.append({"shape": what, "p": p_, "M": M_, "K": K_,
                            "symmetric": sym,
                            "ms": ms, "plain_ms": plain, "library_ms": lib_ms,

@@ -32,11 +32,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from lyssandra_tpu_torch.config import (  # noqa: E402
-    DenoiseConfig,
-    LassoConfig,
-    OMPConfig,
-)
+from lyssandra_tpu_torch.config import DenoiseConfig  # noqa: E402
 from lyssandra_tpu_torch.ops import (  # noqa: E402
     contrast_normalize,
     dct_dictionary,
@@ -65,8 +61,6 @@ from lyssandra_tpu_torch.apps import Denoiser, denoise, psnr  # noqa: E402
 __all__ = [
     "DenoiseConfig",
     "Denoiser",
-    "LassoConfig",
-    "OMPConfig",
     "SparseEncoder",
     "batch_omp",
     "contrast_normalize",

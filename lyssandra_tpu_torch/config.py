@@ -11,30 +11,6 @@ from dataclasses import dataclass
 
 
 @dataclass(frozen=True)
-class OMPConfig:
-    """Greedy-solver config.
-
-    T: max atoms.
-    eps: residual-norm stopping target (None = T-sparse mode).
-    """
-
-    T: int = 8
-    eps: float | None = None
-    precision: str = "highest"   # the reference's matmul precision; the
-    #                              port's numerics are always full float32
-
-
-@dataclass(frozen=True)
-class LassoConfig:
-    """Feature-sign-search config."""
-
-    lam: float = 0.1
-    max_active: int = 64         # fixed active-set capacity
-    max_iter: int = 100          # outer activation steps
-    max_inner: int = 20          # feature-sign refinement steps per activation
-
-
-@dataclass(frozen=True)
 class DenoiseConfig:
     patch: int = 8
     sigma: float = 25.0

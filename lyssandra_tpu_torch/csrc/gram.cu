@@ -39,19 +39,24 @@ namespace {
 constexpr int NSTAGE = 2;             // staged slices in the ring
 constexpr int SMEM_FLOATS = 8192;     // NSTAGE BP (BM + BN) of both tiles
 
-template <int BM, int BN, int TM, int TN, int BP, int MIN_BLOCKS>
+// SYM: C = A^T A from the tiles on or above the diagonal, each
+// off-diagonal tile mirrored through shared memory.
+template <int BM, int BN, int TM, int TN, int BP, int MIN_BLOCKS, bool SYM>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN), MIN_BLOCKS)
 gram_kernel(const float* __restrict__ A, const float* __restrict__ B, int p,
-            int M, int K, int symmetric, float* __restrict__ C) {
+            int M, int K, float* __restrict__ C) {
     using Tl = lyssa::Tile<BM, BN, TM, TN>;
     constexpr int NT = Tl::NT;
     static_assert(NSTAGE * BP * (BM + BN) <= SMEM_FLOATS, "staging ring");
+    static_assert(!SYM || (BM == BN && BN * (BM + 1) <= SMEM_FLOATS),
+                  "the mirror tile fits the staging ring");
     __shared__ __align__(16) float smem[SMEM_FLOATS];
     float* As = smem;                       // [NSTAGE][BP][BM]
     float* Bs = smem + NSTAGE * BP * BM;    // [NSTAGE][BP][BN]
 
     int bi = blockIdx.x, bj = blockIdx.y;
-    if (symmetric) {  // blockIdx.x counts the tiles on or above the diagonal
+    if constexpr (SYM) {  // blockIdx.x counts the tiles on or above the
+                          // diagonal
         const int nt = (K + BN - 1) / BN;
         int rem = blockIdx.x;
         bi = 0;
@@ -109,9 +114,9 @@ gram_kernel(const float* __restrict__ A, const float* __restrict__ B, int p,
         }
     }
 
-    // the mirror tile C[k0.., m0..] of a symmetric product (64 x 64 only)
-    if constexpr (BN * (BM + 1) <= SMEM_FLOATS) {
-        if (symmetric && bi != bj) {
+    // the mirror tile C[k0.., m0..] of a symmetric product
+    if constexpr (SYM) {
+        if (bi != bj) {
             float* Ts = smem;  // [BN][BM + 1]; the pipeline's last
                                // barrier freed the staging ring
 #pragma unroll
@@ -144,14 +149,14 @@ extern "C" int lyssa_gram(const float* A, const float* B, int p, int M, int K,
     if (symmetric) {
         const long long nt = (K + 63) / 64;
         const dim3 grid((unsigned)(nt * (nt + 1) / 2));
-        gram_kernel<64, 64, 4, 4, 32, 4><<<grid, 256, 0, s>>>(A, A, p, M, K,
-                                                              1, C);
+        gram_kernel<64, 64, 4, 4, 32, 4, true><<<grid, 256, 0, s>>>(A, A, p,
+                                                                    M, K, C);
     } else {
         const dim3 grid((unsigned)((M + 127) / 128),
                         (unsigned)((K + 127) / 128));
         if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-        gram_kernel<128, 128, 8, 8, 16, 2><<<grid, 256, 0, s>>>(A, B, p, M,
-                                                                K, 0, C);
+        gram_kernel<128, 128, 8, 8, 16, 2, false><<<grid, 256, 0, s>>>(
+            A, B, p, M, K, C);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -212,6 +212,21 @@ def test_kernel_envelope():
             _build.SMEM_PER_BLOCK
 
 
+@pytest.mark.parametrize("p, T, k_max", [(64, 8, 12304), (512, 32, 10752),
+                                         (768, 10, 11552)])
+def test_kernel_envelope_largest_k(monkeypatch, p, T, k_max):
+    # alpha0 of every lane of a block lives in shared memory, so K has a
+    # cap; above it batch_omp on the card takes the residual-form
+    # _omp_impl instead of the kernel
+    assert cuda_omp.kernel_supports(p, k_max, T)
+    assert not cuda_omp.kernel_supports(p, k_max + 1, T)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    X = torch.empty((p, 4), device="meta")
+    for K, takes in ((k_max, True), (k_max + 1, False)):
+        D = torch.empty((p, K), device="meta")
+        assert greedy._fused_supported(D, X, T) is takes
+
+
 @pytest.mark.parametrize("eps_mode", [False, True])
 def test_omp_fused_launches_gram_once(monkeypatch, eps_mode):
     # The wrapper's CUDA route without a GPU: tensors on the meta device

@@ -63,16 +63,6 @@ def test_denoise_config_matches_reference():
     assert ours == ref
 
 
-@pytest.mark.parametrize("name", ["OMPConfig", "LassoConfig"])
-def test_config_copies_match_reference(name):
-    import lyssandra_tpu.config as jconfig
-
-    def fields(cls):
-        return [(f.name, f.default) for f in dataclasses.fields(cls)]
-
-    assert fields(getattr(lt, name)) == fields(getattr(jconfig, name))
-
-
 # top-level names of the reference that the port does not have yet, each
 # with the ROADMAP item that ports it
 NOT_PORTED = {
@@ -85,6 +75,7 @@ NOT_PORTED = {
     "FeatureExtractor": "A6", "WhitenConfig": "A6", "Whitener": "A6",
     "ZCAWhitener": "A6",
     "Workspace": "A7", "enable_compile_cache": "A7",
+    "OMPConfig": "A7", "LassoConfig": "A7",
     "MeshConfig": "A8",
 }
 
@@ -103,7 +94,7 @@ def test_top_level_names_match_reference():
     assert not stale, f"listed as not ported but present: {stale}"
     assert set(NOT_PORTED) <= ref
     for name in ("contrast_normalize", "normalize_atoms",
-                 "reconstruct_from_patches", "OMPConfig", "LassoConfig"):
+                 "reconstruct_from_patches"):
         assert name in lt.__all__
 
 

@@ -19,11 +19,16 @@ Phases, in order; any failure raises and exits non-zero:
      sigma=25 patches of a 512x512 image (eps = 1.15*8*25, T=10): nsel
      equal on >= 99.9% of lanes; its time and lanes a block;
   5. K3 (fused patch pipeline) against its plain version on that image,
-     DC removal / + contrast normalization / + whitening: atol 1e-4;
-     then the kernels' envelope at small odd shapes (p, K not multiples of
-     32; p=512 and T=32, whose shared memory needs the opt-in above 48 KB;
-     lanes done on entry; whitening at p=5): the same checks, and a T the
-     kernel cannot hold must raise;
+     DC removal / + contrast normalization / + whitening at p=8, and at
+     p=7 (the generic path) DC removal / + whitening: atol 1e-4; each
+     timed one call at a time and in a CUDA graph (the device time), beside
+     its bound; then the kernels' envelope at small odd shapes (p, K not
+     multiples of 32; p=512 and T=32, whose shared memory needs the opt-in
+     above 48 KB; lanes done on entry; whitening at p=5): the same checks,
+     and a T the kernel cannot hold must raise; K3 also on a flat image
+     (scales clamp to eps), on patch rows one past the kernel's runs of 256
+     and 64 patches, and at p=150, whose image tile does not fit shared
+     memory;
   5g. the product kernel C = A^T B (csrc/gram.cu, which G = D^T D of
      K1/K2 and alpha0 = X^T D and G of the Gram-form K4 and K6 come from;
      run before 5c and 5d) against A.T @ B at K4's shapes (p=64: alpha0
@@ -61,10 +66,19 @@ Phases, in order; any failure raises and exits non-zero:
      lanes run (for its bound);
   5e. K7 (fused selection) against its plain version at p=64, K=1024 on
      the 262,144 Gaussian lanes, f32 and bf16: picks equal on >= 99.9% of
-     lanes; exact ties (atom 7 = atom 3) give index 3 on every lane; its
-     envelope (p=5 with K=100, p=512, N=4099 and N=333, f32 and bf16) and
-     p=513, which must raise; the times of the kernel, its plain version
-     and the library pair argmax(|r @ D|);
+     lanes; exact ties (atom 7 = atom 3, and atom 128 = atom 127 across two
+     atom tiles) give the lower index on every lane; its envelope (p=5
+     with K=100, p=512, N=4099 and N=333; shapes that straddle its tiles:
+     N=130 with p=5, K=129 and p=17, K=257; p=256 and 257, where the f32
+     tile changes; K=1,345 at p=64 and K=2,000 at p=48, where bf16 streams
+     D instead of holding it; f32 and bf16), the kernel's shared memory
+     against cuda_select's formula at each tile choice, and p=513, which
+     must raise; the machine code (cuobjdump -sass): HMMA in both bf16
+     kernels, FFMA and no HMMA in the float32 ones;
+     the times of the kernel (one call, and in a CUDA graph), its plain
+     version and the library pairs argmax(|r @ D|), in float32 and with
+     bf16 operands (whose product is rounded to bf16, so a yardstick of
+     speed, not the same function);
   6. the main paths, each counted on its own: (a) Batch-OMP (p=64, K=1024,
      T=8, N=262144) through lyssandra_tpu_torch.batch_omp and the
      sigma=25 denoise of the 512x512 image through Denoiser (one K1, one
@@ -118,6 +132,7 @@ Nothing runs on the CPU when there is no GPU.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -506,11 +521,44 @@ def main():
         check(max(errs) <= 1e-4, f"K3 {sorted(kw)}: {errs}")
         k3_err = max(k3_err, *errs)
         print(f"K3 {sorted(kw)}: max |d| X, means, scales = {errs}")
-    # image in; patches, means and scales out; a sum and a subtraction
-    # per patch element
-    k3_bound = bound_ms(4 * (IMG_SIZE * IMG_SIZE + (64 + 2) * NP),
-                        2 * 64 * NP, PEAK_F32)
-    k3_ms = cuda_ms(torch, lambda: fused_patch_pipeline_p1(noisy, 8))
+    # the generic path (p != 8): p=7, DC removal / + whitening
+    rng = np.random.default_rng(11)
+    whiten7 = (dt(0.1 * rng.standard_normal((49, 49)).astype(np.float32)),
+               dt(rng.standard_normal(49).astype(np.float32)))
+    k3_cases = (
+        (8, "dc", {"do_dc": True}),
+        (8, "dc+norm", {"do_dc": True, "do_norm": True}),
+        (8, "dc+norm+whiten", {"do_dc": True, "do_norm": True,
+                               "whiten": whiten}),
+        (7, "dc", {"do_dc": True}),
+        (7, "dc+norm+whiten", {"do_dc": True, "do_norm": True,
+                               "whiten": whiten7}))
+    k3_times = []
+    for p_, what, kw in k3_cases:
+        if p_ != 8:
+            got = fused_patch_pipeline_p1(noisy, p_, **kw)
+            want = fused_patch_pipeline_reference(noisy, p_, **kw)
+            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            check(max(errs) <= 1e-4, f"K3 p={p_} {what}: {errs}")
+            k3_err = max(k3_err, *errs)
+            print(f"K3 p={p_} {what}: max |d| X, means, scales = {errs}")
+        # image in; patches, means and scales out; a sum and a subtraction
+        # per patch element, and 2 p^4 flops a patch for the whitening
+        np_ = (IMG_SIZE - p_ + 1) ** 2
+        bnd = bound_ms(4 * (IMG_SIZE * IMG_SIZE + (p_ * p_ + 2) * np_),
+                       2 * p_ * p_ * np_
+                       + (2 * p_ ** 4 * np_ if "whiten" in kw else 0),
+                       PEAK_F32)
+        ms = cuda_ms(torch, lambda: fused_patch_pipeline_p1(noisy, p_, **kw))
+        g_ms = graph_ms(torch, lambda: fused_patch_pipeline_p1(
+            noisy, p_, **kw))
+        k3_times.append({"variant": what, "p": p_, "ms": ms, "graph_ms": g_ms,
+                         "bound_ms": bnd[0], "bound_by": bnd[1]})
+        print(f"K3 {IMG_SIZE}^2 p={p_} {what}: kernel {ms:.4f} ms a call, "
+              f"{g_ms:.4f} ms in a CUDA graph; bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}), {bnd[0] / g_ms:.3f} of it in the graph")
+    k3_ms, k3_graph_ms = k3_times[0]["ms"], k3_times[0]["graph_ms"]
+    k3_bound = (k3_times[0]["bound_ms"], k3_times[0]["bound_by"])
     k3_plain_ms = cuda_ms(
         torch, lambda: fused_patch_pipeline_reference(noisy, 8))
     del got, want, Xn, Xn64
@@ -553,14 +601,34 @@ def main():
     odd = dt((255.0 * rng.random((33, 47))).astype(np.float32))
     Wm5 = dt(rng.standard_normal((25, 25)).astype(np.float32))
     off5 = dt(rng.standard_normal(25).astype(np.float32))
-    for p, kw in ((8, {"do_dc": True, "do_norm": True}),
-                  (5, {"do_dc": True, "do_norm": True,
-                       "whiten": (Wm5, off5)})):
-        got = fused_patch_pipeline_p1(odd, p, **kw)
-        want = fused_patch_pipeline_reference(odd, p, **kw)
+    # a flat image (every patch constant: the centred sum of squares is 0
+    # and the scales clamp to eps); patch rows one past the kernel's runs
+    # of 256 patches (p=8) and of 64 (whitening at other p); p=150, whose
+    # image tile does not fit shared memory (windows read from the image)
+    flat = dt(np.full((40, 36), 137.0, np.float32))
+    run257 = dt((255.0 * rng.random((20, 257 + 7))).astype(np.float32))
+    run65 = dt((255.0 * rng.random((20, 65 + 4))).astype(np.float32))
+    big = dt((255.0 * rng.random((160, 170))).astype(np.float32))
+    norm = {"do_dc": True, "do_norm": True}
+    for name, im, p, kw in (
+            ("33x47", odd, 8, norm),
+            ("33x47", odd, 5, {**norm, "whiten": (Wm5, off5)}),
+            ("flat 40x36", flat, 8, norm),
+            ("flat 40x36", flat, 8, {**norm, "whiten": whiten}),
+            ("Wp=257", run257, 8, norm),
+            ("Wp=65", run65, 5, {**norm, "whiten": (Wm5, off5)}),
+            ("160x170", big, 150, {"do_dc": True})):
+        got = fused_patch_pipeline_p1(im, p, **kw)
+        want = fused_patch_pipeline_reference(im, p, **kw)
         errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-        check(max(errs) <= 1e-4, f"K3 33x47 p={p} {sorted(kw)}: {errs}")
-        print(f"K3 33x47 p={p} {sorted(kw)}: max |d| = {errs}")
+        check(max(errs) <= 1e-4, f"K3 {name} p={p} {sorted(kw)}: {errs}")
+        k3_err = max(k3_err, *errs)
+        print(f"K3 {name} p={p} {sorted(kw)}: max |d| = {errs}")
+    check(tuple(got[0].shape) == (150 * 150, 11 * 21), "K3 p=150 shape")
+    got = fused_patch_pipeline_p1(flat, 8, **norm)
+    check(bool((got[2] == 1e-8).all()) and bool((got[0] == 0).all()),
+          "K3 flat image: scales not clamped to eps or X not 0")
+    del got, want, big
 
     # --- 5g. the product kernel against A.T @ B (K1, K2, K4 and K6 start
     # from it)
@@ -887,38 +955,92 @@ def main():
         want = select_abs_argmax_reference(rtie, Dtie, bf16=bf16)
         check(bool((got == 3).all()) and bool((want == 3).all()),
               f"K7 exact ties bf16={bf16}: not the lower index everywhere")
-    print("K7 exact ties N=65536: index 3 on every lane, f32 and bf16")
+    # atoms 127 and 128 lie in two atom tiles of the kernel
+    Dtie[:, 128] = Dtie[:, 127]
+    rtie = Dtie[:, 127][None, :] + dt((0.02 * np.random.default_rng(17)
+                                       .standard_normal((4099, P)))
+                                      .astype(np.float32))
+    for bf16 in (False, True):
+        got = select_abs_argmax(rtie, Dtie, bf16=bf16)
+        want = select_abs_argmax_reference(rtie, Dtie, bf16=bf16)
+        check(bool((got == 127).all()) and bool((want == 127).all()),
+              f"K7 exact ties across tiles bf16={bf16}: not the lower index")
+    print("K7 exact ties N=65536: index 3 on every lane; across two atom "
+          "tiles N=4099: index 127 on every lane; f32 and bf16")
     rng = np.random.default_rng(8)
-    for p_, K_, N_ in ((5, 100, 1000), (512, 1024, 4099), (64, 1024, 333)):
+    for p_, K_, N_ in ((5, 100, 1000), (512, 1024, 4099), (64, 1024, 333),
+                       (5, 129, 130), (17, 257, 130), (256, 300, 777),
+                       (257, 300, 777), (64, 1345, 20000), (48, 2000, 7001)):
         D_ = rng.standard_normal((p_, K_))
         D_ /= np.linalg.norm(D_, axis=0)
         select_case(dt(rng.standard_normal((N_, p_)).astype(np.float32)),
                     dt(D_.astype(np.float32)),
                     f"envelope p={p_} K={K_} N={N_}")
     lib = _build.load()
-    for p_ in (5, 64, 512):
-        check(lib.lyssa_select_smem_bytes(p_) == select_smem_bytes(p_),
-              f"K7 shared memory at p={p_}: the kernel and kernel_supports "
-              f"disagree")
+    for p_, K_ in ((1, 7), (5, 100), (16, 4586), (17, 257), (64, 1024),
+                   (64, 1344), (64, 1345), (65, 100), (256, 300), (257, 300),
+                   (512, 1024)):
+        for bf16 in (0, 1):
+            check(lib.lyssa_select_smem_bytes(p_, K_, bf16)
+                  == select_smem_bytes(p_, K_, bool(bf16)),
+                  f"K7 shared memory at p={p_} K={K_} bf16={bf16}: the "
+                  f"kernel and cuda_select disagree")
     try:
         select_abs_argmax(torch.zeros((64, 513), device=dev),
                           torch.zeros((513, 128), device=dev))
         check(False, "K7 at p=513 did not raise")
     except ValueError as e:
         print(f"K7 p=513 raises: {e}")
-    k7_ms = cuda_ms(torch, lambda: select_abs_argmax(r7, Db))
-    k7_bf16_ms = cuda_ms(torch, lambda: select_abs_argmax(r7, Db, bf16=True))
+    # the machine code: the bf16 kernels take their products on the tensor
+    # cores (HMMA), the float32 kernels on the fma units (FFMA, no HMMA)
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+         str(_build.library_path())],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    seen = set()
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        mode = re.search(r"\d(bfr|bf|f32)13select_kernel", name)
+        if mode is None:
+            continue
+        hmma = len(re.findall(r"\bHMMA\b", fn))
+        ffma = len(re.findall(r"\bFFMA\b", fn))
+        seen.add(mode.group(1))
+        check(hmma > 0 if mode.group(1) != "f32" else hmma == 0 and ffma > 0,
+              f"K7 {name}: {hmma} HMMA, {ffma} FFMA")
+        print(f"K7 SASS {mode.group(1)} {name[-40:]}: {hmma} HMMA, "
+              f"{ffma} FFMA")
+    check(seen == {"bf", "bfr", "f32"}, f"K7 SASS: kernels seen {seen}")
+    del sass
+
+    def k7_kernel(bf16):
+        return lambda: select_abs_argmax(r7, Db, bf16=bf16)
+
+    def k7_library(bf16):
+        if bf16:
+            return lambda: torch.argmax(torch.abs(
+                (r7.bfloat16() @ Db.bfloat16()).float()), dim=1)
+        return lambda: torch.argmax(torch.abs(r7 @ Db), dim=1)
+
+    k7_ms, k7_bf16_ms = (cuda_ms(torch, k7_kernel(b)) for b in (False, True))
+    k7_graph_ms, k7_bf16_graph_ms = (graph_ms(torch, k7_kernel(b))
+                                     for b in (False, True))
     k7_plain_ms = cuda_ms(torch, lambda: select_abs_argmax_reference(r7, Db))
     k7_plain_bf16_ms = cuda_ms(torch, lambda: select_abs_argmax_reference(
         r7, Db, bf16=True))
-    k7_lib_ms = cuda_ms(torch, lambda: torch.argmax(torch.abs(r7 @ Db),
-                                                    dim=1))
+    k7_lib_ms, k7_bf16_lib_ms = (cuda_ms(torch, k7_library(b))
+                                 for b in (False, True))
+    k7_lib_graph_ms, k7_bf16_lib_graph_ms = (graph_ms(torch, k7_library(b))
+                                             for b in (False, True))
     k7_bytes = 4 * (NB * P + P * K + NB)
     k7_bound = bound_ms(k7_bytes, 2 * NB * P * K, PEAK_F32)
     k7_bound_bf16 = bound_ms(k7_bytes, 2 * NB * P * K, PEAK_BF16)
-    print(f"K7 p={P} K={K} N={NB}: kernel {k7_ms:.3f} ms (bf16 "
-          f"{k7_bf16_ms:.3f}), plain {k7_plain_ms:.3f} ms (bf16 "
-          f"{k7_plain_bf16_ms:.3f}), library pair {k7_lib_ms:.3f} ms; bound "
+    print(f"K7 p={P} K={K} N={NB}: kernel f32 {k7_ms:.4f} ms a call, "
+          f"{k7_graph_ms:.4f} ms in a CUDA graph; bf16 {k7_bf16_ms:.4f}, "
+          f"{k7_bf16_graph_ms:.4f}; plain {k7_plain_ms:.4f} ms (bf16 "
+          f"{k7_plain_bf16_ms:.4f}); library pair {k7_lib_ms:.4f} ms, "
+          f"{k7_lib_graph_ms:.4f} in a graph (bf16 operands "
+          f"{k7_bf16_lib_ms:.4f}, {k7_bf16_lib_graph_ms:.4f}); bound "
           f"{k7_bound[0]:.4f} ms ({k7_bound[1]}), bf16 "
           f"{k7_bound_bf16[0]:.4f} ms ({k7_bound_bf16[1]})")
     del Dtie, rtie
@@ -1318,7 +1440,8 @@ def main():
          "replaces": "lyssandra_tpu/ops/pallas_patches.py:37",
          "launches": launches["fused_patches"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
-         "bound_by": k3_bound[1], "library_ms": None},
+         "bound_by": k3_bound[1], "library_ms": None,
+         "graph_ms": k3_graph_ms, "variants": k3_times},
         {"name": "group_omp_fused", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/group_omp.cu",
          "replaces": "lyssandra_tpu/ops/pallas_group.py:52,253",
@@ -1338,7 +1461,11 @@ def main():
          "max_abs_err": k7_err, "mismatch_share": k7_share,
          "ms": k7_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound[0],
          "bound_by": k7_bound[1], "library_ms": k7_lib_ms,
-         "bf16_ms": k7_bf16_ms, "bf16_plain_ms": k7_plain_bf16_ms,
+         "graph_ms": k7_graph_ms, "library_graph_ms": k7_lib_graph_ms,
+         "bf16_ms": k7_bf16_ms, "bf16_graph_ms": k7_bf16_graph_ms,
+         "bf16_plain_ms": k7_plain_bf16_ms,
+         "bf16_library_ms": k7_bf16_lib_ms,
+         "bf16_library_graph_ms": k7_bf16_lib_graph_ms,
          "bf16_max_abs_err": k7_err_bf16, "bf16_bound_ms": k7_bound_bf16[0],
          "bf16_bound_by": k7_bound_bf16[1]},
         # times at K4's alpha0 shape (a group-encoder block); by_shape has
@@ -1351,6 +1478,7 @@ def main():
          "launches": sum(counts["gram"] for counts in paths),
          "max_abs_err": gram_err, "max_rel_err": gram_rel,
          "ms": gram_times[0]["ms"], "plain_ms": gram_times[0]["plain_ms"],
+         "graph_ms": gram_times[0]["graph_ms"],
          "bound_ms": gram_times[0]["bound_ms"],
          "bound_by": gram_times[0]["bound_by"],
          "library_ms": gram_times[0]["library_ms"], "by_shape": gram_times},

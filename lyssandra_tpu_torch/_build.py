@@ -48,8 +48,8 @@ _SIGNATURES = {
     # theta, gact, gr, done, stream
     "lyssa_fs_cold": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P, _P,
                       _P, _P, _P],
-    # r, D, p, K, N, bf16, k_out, stream
-    "lyssa_select_abs_argmax": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # r, D, p, K, N, bf16, Dh, k_out, stream
+    "lyssa_select_abs_argmax": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # A, B, p, M, K, symmetric, C, stream
     "lyssa_gram": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
@@ -144,7 +144,7 @@ def load() -> ctypes.CDLL:
     lib.lyssa_error_string.restype = ctypes.c_char_p
     lib.lyssa_fused_patches_whiten_smem.argtypes = [ctypes.c_int]
     lib.lyssa_fused_patches_whiten_smem.restype = ctypes.c_size_t
-    lib.lyssa_select_smem_bytes.argtypes = [ctypes.c_int]
+    lib.lyssa_select_smem_bytes.argtypes = [_I, _I, _I]
     lib.lyssa_select_smem_bytes.restype = ctypes.c_size_t
     lib.lyssa_omp_fused_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.lyssa_omp_fused_smem_bytes.restype = ctypes.c_size_t

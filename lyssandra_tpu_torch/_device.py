@@ -8,6 +8,8 @@ no device named, no tensor input and no GPU, the call raises.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,3 +24,13 @@ def resolve_device(device=None, *inputs) -> torch.device:
     if torch.cuda.is_available():
         return torch.device("cuda")
     raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
+
+
+def kernel_device(t: torch.Tensor):
+    """The context a kernel launch for the CUDA tensor ``t`` runs in: none
+    when ``t``'s GPU is already the current one (the usual case, and the
+    cheaper one on the host), else ``torch.cuda.device(t.device)``, so that
+    the kernel and the current stream are ``t``'s."""
+    if t.device.index is None or t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)

@@ -12,6 +12,8 @@
 // slice to each thread's TM x TN accumulators.  Each product is a float32
 // fma in order over p (no TF32, no tensor cores): a zero-filled row adds
 // fma(a, 0, acc) = acc, so the result does not depend on the tiling.
+// csrc/select.cu uses `Tile` with a warp layout of its own (`WX`) and the
+// cp.async helpers for bfloat16 tiles too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,7 +21,7 @@
 
 namespace lyssa {
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -125,16 +127,38 @@ __device__ __forceinline__ void load_vec(float* d, const float* s) {
 // a thread.  Thread (ty, tx) owns rows row(ty, i) and columns col(tx, j):
 // groups of RV (CV) consecutive rows (columns), the groups BM / (TM / RV)
 // apart, so that a warp's shared-memory reads of B are 16-byte loads of
-// consecutive addresses (no bank conflicts) and its reads of A broadcast.
-template <int BM, int BN, int TM, int TN>
+// consecutive addresses and its reads of A broadcast.
+//
+// Warp layout: ty_of / tx_of place the threads so that a warp spans WY
+// rows by WX columns of threads.  The default, WX = TX (up to 32), is the
+// plain row-major order tx = tid % TX that gram.cu and omp_fused.cu
+// compute themselves.  With TX = 16 a warp then spans 2 x 16 threads, and
+// one warp-wide 16-byte read of B covers 256 bytes, two shared-memory
+// wavefronts.  WX = 8 (a warp of 4 x 8 threads) makes that read 128
+// contiguous bytes, one wavefront, and the read of A 64 bytes, broadcast
+// to the 8 threads of a row; csrc/select.cu uses it.
+template <int BM, int BN, int TM, int TN,
+          int WX = (BN / TN < 32 ? BN / TN : 32)>
 struct Tile {
     static constexpr int RV = TM < 4 ? TM : 4;
     static constexpr int CV = TN < 4 ? TN : 4;
     static constexpr int TX = BN / TN;
     static constexpr int TY = BM / TM;
     static constexpr int NT = TX * TY;
+    static constexpr int WY = 32 / WX;
     static_assert(TM % RV == 0 && TN % CV == 0, "tile shape");
     static_assert(BM % TM == 0 && BN % TN == 0, "tile shape");
+    static_assert(32 % WX == 0 && TX % WX == 0 && TY % WY == 0,
+                  "warp layout");
+
+    // thread coordinates: warps cover the TY x TX threads in WY x WX
+    // blocks, TX / WX of them along a row of threads
+    __device__ static __forceinline__ int tx_of(int tid) {
+        return (tid / 32) % (TX / WX) * WX + tid % WX;
+    }
+    __device__ static __forceinline__ int ty_of(int tid) {
+        return (tid / 32) / (TX / WX) * WY + tid % 32 / WX;
+    }
 
     __device__ static __forceinline__ int row(int ty, int i) {
         return (i / RV) * (BM / (TM / RV)) + ty * RV + i % RV;

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from lyssandra_tpu_torch import _build
+from lyssandra_tpu_torch._device import kernel_device
 from lyssandra_tpu_torch.ops.patches import extract_patches
 
 
@@ -78,12 +79,11 @@ def fused_patch_pipeline_p1(
     X = torch.empty((p2, Np), dtype=torch.float32, device=img.device)
     means = torch.empty((Np,), dtype=torch.float32, device=img.device)
     scales = torch.empty((Np,), dtype=torch.float32, device=img.device)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with kernel_device(img):
         code = lib.lyssa_fused_patches(
             img.data_ptr(), H, W, p, int(do_dc), int(do_norm), float(eps),
             wm_ptr, off_ptr, X.data_ptr(), means.data_ptr(),
-            scales.data_ptr(), stream)
+            scales.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "fused_patches kernel")
     fused_patch_pipeline_p1.launches += 1
     return X, means, scales

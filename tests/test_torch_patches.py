@@ -103,6 +103,45 @@ def test_fused_pipeline_plain_matches_pallas_interpret(rng, do_dc, do_norm,
         np.testing.assert_allclose(_np(a), np.asarray(b), atol=ATOL)
 
 
+@pytest.mark.parametrize("case,whiten", [
+    ("flat", False), ("flat", True),   # every patch constant
+    ("run257", False),                 # patch rows one past a run of 256
+    ("run65", True),                   # one past a whitening run of 64
+])
+def test_fused_pipeline_reference_matches_pallas_at_edges(rng, case, whiten):
+    """The plain version against the Pallas kernel in interpret mode where
+    the CUDA kernel's blocks have edges: a flat image (every patch constant,
+    so the centred sum of squares is 0 and the scales clamp to eps; integer
+    pixels keep both sides' means exact), and patch rows one longer than
+    the kernel's runs of patches (256 a block; 64 when it whitens at a p
+    other than 8).  DC removal alone, or with normalization and
+    whitening."""
+    p = 4
+    shape = {"flat": (12, 21), "run257": (6, 257 + p - 1),
+             "run65": (6, 65 + p - 1)}[case]
+    img = (np.full(shape, 137.0, np.float32) if case == "flat"
+           else _image(rng, shape))
+    wj = wt = None
+    if whiten:
+        Wm = rng.standard_normal((p * p, p * p)).astype(np.float32)
+        off = rng.standard_normal(p * p).astype(np.float32)
+        wj = (jnp.asarray(Wm), jnp.asarray(off))
+        wt = (torch.from_numpy(Wm), torch.from_numpy(off))
+    got = cuda_patches.fused_patch_pipeline_reference(
+        torch.from_numpy(img), p, do_dc=True, do_norm=whiten, whiten=wt)
+    want = jp1(jnp.asarray(img), p, do_dc=True, do_norm=whiten, whiten=wj,
+               interpret=True)
+    Hp, Wp = shape[0] - p + 1, shape[1] - p + 1
+    assert tuple(got[0].shape) == (p * p, Hp * Wp)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=ATOL)
+    if case == "flat":
+        assert bool((got[1] == 137.0).all())
+        assert bool((got[2] == 1e-8).all())
+        if not whiten:
+            assert bool((got[0] == 0.0).all())
+
+
 @pytest.mark.parametrize("shape,stride", [((20, 20), 4), ((19, 17, 3), 1)])
 def test_fused_pipeline_plain_ops_route(rng, shape, stride):
     # strides other than 1 and colour images take the plain ops, with the

@@ -59,7 +59,7 @@ VARIANTS = {
          "__launch_bounds__(BM * BN / (TM * TN), 1)")]},
     "bf16 diagnostic: the epilogue on 1 of 8 n-tiles": {SEL: [
         (EPILOGUE, EPILOGUE.replace("ni < NI", "ni < 1"))]},
-    "bf16 diagnostic: no mma": {SEL: [(RES_MMA, "")]},
+    "bf16 diagnostic: no mma": {SEL: [(RES_MMA, ";")]},
     "K3 wrapper entering torch.cuda.device on every call": {PATCH_PY: [
         ("with kernel_device(img):", "with torch.cuda.device(img.device):")]},
 }

@@ -106,9 +106,8 @@ Phases, in order; any failure raises and exits non-zero:
      the known pixels kept within 1e-4; (h) SparseEncoder("llc", knn=5)
      on the same signals: codes sum to 1 within 1e-5, the support is the 5
      largest d.x, 1,024 lanes within 1e-4 of a float64 solve;
-     every kernel must have launched on one of the paths; the denoised
-     image must beat the noisy one by > 3 dB and agree within 0.05 dB with
-     a path built from the plain versions;
+     the denoised image must beat the noisy one by > 3 dB and agree
+     within 0.05 dB with a path built from the plain versions;
   7. a p=768 colour denoise (16 x 16 x 3 patches of a 64x64 image, K=256)
      through the route the denoiser's gate picks (K2 where the kernel
      takes the shape, else blocked Batch-OMP; its launches must say
@@ -121,7 +120,40 @@ Phases, in order; any failure raises and exits non-zero:
      syncs of one call; _omp_impl with fused_select True and False (f32
      and bf16), the nn_omp and llc encoders' patches/s and the inpaint
      seconds;
-then one JSON line of per-kernel results (with each kernel's bound: the
+  8. the dictionary-learning paths, after the times above so that these
+     read as before them: (i) KSVDLearner at config 2's full width (50,000
+     8x8 patches of the 512^2 barbara and lena stand-ins, K=512, T=8, 20
+     iterations, after a one-iteration warm-up): 4 K1 and 4 product
+     launches an iteration, the sweep phase monotone on every iteration
+     (objective <= 1.001 x the post-coding one), no rise above 3% between
+     iterations, net progress, unit-norm atoms, the reference's history
+     keys, the host syncs of the fit (torch's sync debug mode, checked on
+     two scalar reads first); init_dictionary on the GPU equal to the
+     CPU's; one coding block (16,384 patches) through K1 against its plain
+     version lane by lane, from D0 and from the learned D: gamma within
+     1e-4 of ||x|| and err within 1e-6 of ||x||^2 where the picks agree;
+     where they part, the same residual energy within 1e-3 of ||x||^2;
+     picks equal to a float64 solve's on as many lanes as the plain
+     float32 residual and Gram forms manage (less 0.5% of the lanes: D0's
+     near-duplicate atoms tie within rounding), and from the learned D
+     equal to the plain version's on >= 99.9% of lanes; the first 3
+     iterations again, each coded also by the plain Gram form and the
+     plain residual form from the same D (no K1 launch): post-coding
+     objectives within 1e-5 and 1e-4, post-sweep objectives within 1%,
+     timed by parts (coding, sweep, stats and replacement) with CUDA
+     events; (j) compact codes, 3
+     iterations at atom_block=8, objective within 5% of dense codes at
+     atom_block=8, peak device memory of both routes; (k) denoise_adaptive
+     of the 512^2 image at sigma=25 (K=256, 12 iterations on 30,000
+     patches, T_max=16): K2 launches in the training and in the denoise,
+     one K3; one training block (16,384 patches, T=16) through K2 against
+     its plain version with the learned D (nsel and picks equal on >= 99.9%
+     of lanes, gamma within 1e-5 of ||x|| there); PSNR above the noisy image's + 3 dB, at least the DCT
+     denoise's - 0.1 dB, and within 0.05 dB of the same denoise from the
+     plain versions with the learned D;
+     every kernel must have launched on one of the paths;
+then one JSON line of the results of paths (i)-(k), one JSON line of
+per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
 of their type, counted from this run's data for the cheapest form of the
 function, the Gram form for the greedy kernels) and, last, the result
@@ -150,6 +182,13 @@ REPS = 5
 P4, K4, LAM, TUN = 192, 1024, 0.15, 28   # config 4: 8x8x3 patches, K=1024
 N4 = 16384                               # config 4's patches, 8 blocks
 N_SWEEP = 131072                         # the solver sweep's signals
+# config 2 (benchmarks/run.py:93-111): K-SVD on 50,000 patches of two 512^2
+# images, K=512, T=8, 20 iterations; the plain-path comparison with the
+# timing by parts, and the compact-codes fit, run a few iterations each
+KSVD_IMG, KSVD_N, KSVD_K, KSVD_ITERS = 512, 50000, 512, 20
+KSVD_PARTS_ITERS = KSVD_COMPACT_ITERS = 3
+# config 3's adaptive denoise (benchmarks/run.py:149-150)
+ADAPT_TRAIN, ADAPT_ITERS = 30000, 12
 # published H100 SXM peaks (NVIDIA's data sheet), for the bounds
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
@@ -330,6 +369,408 @@ def graph_ms(torch, fn, n=20, reps=REPS):
     return statistics.median(times)
 
 
+def count_syncs(torch, fn):
+    """(fn(), the synchronizing CUDA calls it made): torch's sync debug
+    mode warns on each, and the warnings are counted."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def hold_lanes(torch, got, want, X):
+    """A fused OMP result (idx, gamma, err, nsel) against its plain
+    version, lane by lane: the share of lanes with equal nsel and equal
+    picks within it; on those lanes the largest |dgamma| over ||x|| and
+    |derr| over ||x||^2; on the other lanes the largest |derr| over
+    ||x||^2."""
+    T = got[0].shape[1]
+    keep = torch.arange(T, device=X.device)[None, :] < want[3][:, None]
+    same = (got[3] == want[3]) & ((got[0] == want[0]) | ~keep).all(dim=1)
+    xx = (X.double() ** 2).sum(dim=0).clamp_min(1e-12)
+    dg = (got[1] - want[1]).double().abs().amax(dim=1) / xx.sqrt()
+    de = (got[2] - want[2]).double().abs() / xx
+
+    def most(v, where):
+        return float(v[where].max()) if bool(where.any()) else 0.0
+
+    return {"agree": float(same.double().mean()),
+            "gamma_rel": most(dg, same), "err_rel": most(de, same),
+            "lanes_differ": int((~same).sum()),
+            "differ_err_rel": most(de, ~same)}
+
+
+def plain_denoise(torch, noisy, D, cfg, sigma):
+    """The denoise forward from the plain versions only: the patch
+    pipeline, the error-stopped OMP at T1 = min(10, T_max), the lanes that
+    used all T1 atoms short of eps solved again at T_max, the weighted
+    reconstruction."""
+    from lyssandra_tpu_torch.ops.cuda_omp import omp_fused_reference
+    from lyssandra_tpu_torch.ops.cuda_patches import (
+        fused_patch_pipeline_reference,
+    )
+    from lyssandra_tpu_torch.ops.patches import weighted_reconstruct
+    from lyssandra_tpu_torch.solvers.greedy import GreedyResult, _omp_impl
+
+    p = cfg.patch
+    eps = cfg.gain * p * sigma
+    T1 = min(10, cfg.T_max)
+    Xc, means, _ = fused_patch_pipeline_reference(noisy, p, do_dc=True)
+    r = GreedyResult(*omp_fused_reference(D, Xc, T=T1, eps=eps,
+                                          eps_mode=True))
+    Gamma = r.dense(D.shape[1])
+    bad = torch.nonzero((r.nsel == T1) & (r.err > eps * eps))[:, 0]
+    if len(bad):
+        Gamma[:, bad] = _omp_impl(D, Xc[:, bad], eps, T=cfg.T_max,
+                                  eps_mode=True).dense(D.shape[1])
+    Xhat = D @ Gamma + means[None, :]
+    return weighted_reconstruct(Xhat, noisy, p, cfg.lam / sigma)
+
+
+def ksvd_paths(torch, lt, dev, img, noisy, img_d):
+    """Paths (i)-(k): K-SVD at config 2's full width (dense codes, then
+    compact codes) and the adaptive denoise.  Returns (the launches of each
+    path, one JSON-able dict of results)."""
+    import dataclasses
+    import importlib
+
+    from lyssandra_tpu_torch.utils.datasets import (
+        patch_dataset, standard_test_image,
+    )
+
+    ksvd_mod = importlib.import_module("lyssandra_tpu_torch.dict_learning.ksvd")
+    denoise_mod = importlib.import_module("lyssandra_tpu_torch.apps.denoise")
+    cuda_omp = importlib.import_module("lyssandra_tpu_torch.ops.cuda_omp")
+    block = lt.SparseEncoder().block
+    out = {}
+
+    # --- path (i): config 2 (benchmarks/run.py:93-111): 50,000 8x8 patches
+    # of barbara and lena at 512^2, K=512, T=8, 20 iterations; one warm-up
+    # fit of one iteration first
+    imgs = [standard_test_image("barbara", KSVD_IMG),
+            standard_test_image("lena", KSVD_IMG)]
+    X2 = torch.as_tensor(patch_dataset(imgs, p=8, n_patches=KSVD_N)
+                         .astype(np.float32), device=dev)
+    cfg2 = lt.KSVDConfig(K=KSVD_K, T=8, n_iter=KSVD_ITERS)
+    n_blocks = math.ceil(KSVD_N / block)
+    lt.KSVDLearner(dataclasses.replace(cfg2, n_iter=1)).fit(X2)
+    # the sync counter itself: two scalar reads must count two
+    _, calib = count_syncs(torch, lambda: (float(X2[0, 0]), float(X2[1, 0])))
+    check(calib == 2, f"sync counting: two scalar reads counted {calib}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    lt.reset_launch_counts()
+    t0 = time.perf_counter()
+    learner, syncs = count_syncs(torch, lambda: lt.KSVDLearner(cfg2).fit(X2))
+    t_fit = time.perf_counter() - t0
+    launches_i = lt.launch_counts()
+    # device memory the fit took beyond what was there before it
+    peak_dense = torch.cuda.max_memory_allocated(dev) - base
+    print(f"path (i) KSVDLearner fit launches: {launches_i}; host syncs "
+          f"{syncs}")
+    check(launches_i["omp_fused_t"] == n_blocks * KSVD_ITERS
+          and launches_i["gram"] == n_blocks * KSVD_ITERS,
+          f"K-SVD fit: {n_blocks} K1 and {n_blocks} product launches an "
+          f"iteration expected, got {launches_i}")
+    hist = learner.history_
+    keys = {"objective", "rmse", "avg_nnz", "atoms_replaced",
+            "objective_coding", "seconds", "dispatch_seconds",
+            "patches_per_sec", "iter"}            # the reference's keys
+    check(len(hist) == KSVD_ITERS and all(keys <= set(h) for h in hist),
+          f"K-SVD history: {len(hist)} entries, keys {sorted(hist[0])}")
+    objs = [h["objective"] for h in hist]
+    for h in hist:
+        check(h["objective"] <= h["objective_coding"] * 1.001,
+              f"K-SVD sweep phase rose at iteration {h['iter']}: {h}")
+    check(all(objs[i + 1] <= objs[i] * 1.03 for i in range(len(objs) - 1)),
+          f"K-SVD objective rose by more than 3%: {objs}")
+    check(objs[-1] < objs[0] and all(math.isfinite(o) for o in objs),
+          f"K-SVD made no progress: {objs}")
+    nrm_err = float((torch.linalg.norm(learner.D_, dim=0) - 1.0).abs().max())
+    check(nrm_err <= 1e-4, f"K-SVD atoms off unit norm by {nrm_err}")
+    replaced = [h["atoms_replaced"] for h in hist]
+    # the init draws happen on the CPU: the GPU and the CPU start alike
+    D0 = lt.init_dictionary(X2, KSVD_K, "data", 0)
+    D0_cpu = lt.init_dictionary(X2.cpu(), KSVD_K, "data", 0)
+    init_err = float((D0.cpu() - D0_cpu).abs().max())
+    check(init_err <= 1e-6, f"init_dictionary GPU against CPU: {init_err}")
+    # K1 lane by lane on one coding block, from D0 (columns of X: many
+    # near-duplicate atoms, whose scores tie within float32 rounding) and
+    # from the learned D, against its plain version in float32 and, to tell
+    # rounding from fault, in float64: the kernel must pick as the float64
+    # solve does on as many lanes as a plain float32 version does (less
+    # 0.5% of the lanes), and where its picks part from the plain
+    # version's, leave the same residual energy within 1e-3 of ||x||^2.
+    # From the learned D the picks agree on >= 99.9% of lanes.  The plain
+    # Gram form codes the plain path below
+    Xblk = X2[:, :block]
+    held = {}
+    for what, Dh in (("D0", D0), ("learned D", learner.D_)):
+        got = cuda_omp.omp_fused(Dh, Xblk, T=8)
+        want = cuda_omp.omp_fused_reference(Dh, Xblk, T=8)
+        want64 = cuda_omp.omp_fused_reference(Dh.double(), Xblk.double(),
+                                              T=8)
+        gram_form = tuple(lt.batch_omp(Dh, Xblk, 8, dense=False,
+                                       refresh="gram"))
+        h = held[what] = hold_lanes(torch, got, want, Xblk)
+        h["kernel_f64"] = hold_lanes(torch, got, want64, Xblk)["agree"]
+        h["plain_f64"] = hold_lanes(torch, want, want64, Xblk)["agree"]
+        h["gram_form"] = hold_lanes(torch, got, gram_form, Xblk)
+        h["gram_form_f64"] = hold_lanes(torch, gram_form, want64, Xblk)
+        g = h["gram_form"]
+        print(f"K1 on a K-SVD block ({Xblk.shape[1]} patches, K={KSVD_K}, "
+              f"T=8) from {what}: picks agree with the plain version on "
+              f"{h['agree']:.6f} of lanes, there max |dgamma|/||x|| "
+              f"{h['gamma_rel']:.3g}, |derr|/||x||^2 {h['err_rel']:.3g}; on "
+              f"the {h['lanes_differ']} other lanes max |derr|/||x||^2 "
+              f"{h['differ_err_rel']:.3g}; with float64 the kernel "
+              f"agrees on {h['kernel_f64']:.6f}, the plain version on "
+              f"{h['plain_f64']:.6f}; with the plain Gram form on "
+              f"{g['agree']:.6f} (max |dgamma|/||x|| {g['gamma_rel']:.3g}; "
+              f"{g['lanes_differ']} lanes differ, max |derr|/||x||^2 "
+              f"{g['differ_err_rel']:.3g}); the plain Gram form "
+              f"with float64 on {h['gram_form_f64']['agree']:.6f} (max "
+              f"|dgamma|/||x|| {h['gram_form_f64']['gamma_rel']:.3g})")
+    del got, want, want64, gram_form
+    for what, h in held.items():
+        check(h["kernel_f64"] >= min(h["plain_f64"],
+                                     h["gram_form_f64"]["agree"]) - 0.005
+              and h["gamma_rel"] <= 1e-4 and h["err_rel"] <= 1e-6
+              and h["differ_err_rel"] <= 1e-3,
+              f"K1 on a K-SVD block from {what} against its plain version: "
+              f"{h}")
+    check(held["learned D"]["agree"] >= 0.999,
+          f"K1 on a K-SVD block from the learned D: {held['learned D']}")
+    # against the plain path, iteration by iteration: the fit's first
+    # iterations from D0 again, each one coded by K1 and, from the same D,
+    # by the plain Gram form and by the plain residual form (no K1 launch).
+    # The post-coding objectives differ only through the lanes whose picks
+    # part among near-ties.  The sweep then moves D by those lanes' other
+    # supports, and its objective parts by a few tenths of a percent even
+    # between the two plain forms, which is printed beside
+    plain_enc = lt.SparseEncoder("bomp", {"T": 8, "refresh": "gram"},
+                                 check_atoms=False)
+    res_enc = lt.SparseEncoder("omp", {"T": 8, "fused": False},
+                               check_atoms=False)
+    # seconds by parts, from CUDA events around the coding (with the
+    # post-coding objective), the sweep, and the stats with the replacement
+    D = D0
+    parts = {"coding": [], "sweep": [], "replacement and stats": []}
+    step_objs, plain_objs, step_code, plain_code = [], [], [], []
+    plain_replaced, res_objs, res_code = [], [], []
+    for _ in range(KSVD_PARTS_ITERS):
+        lt.reset_launch_counts()
+        _, _, st = ksvd_mod.ksvd_step(X2, D, plain_enc, cfg2)
+        _, _, st_res = ksvd_mod.ksvd_step(X2, D, res_enc, cfg2)
+        check(lt.launch_counts()["omp_fused_t"] == 0, "the plain K-SVD ran K1")
+        plain_objs.append(float(st[0]))
+        plain_replaced.append(int(st[3]))
+        plain_code.append(float(st[4]))
+        res_objs.append(float(st_res[0]))
+        res_code.append(float(st_res[4]))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        Gamma = learner.encoder.encode(X2, D)
+        Rc = X2 - D @ Gamma
+        obj_code = (Rc * Rc).sum()
+        ev[1].record()
+        D, Gamma = ksvd_mod.ksvd_atom_update(X2, D, Gamma)
+        ev[2].record()
+        D, Gamma, st = ksvd_mod._ksvd_dense_post(X2, D, Gamma, obj_code,
+                                                 cfg2)
+        ev[3].record()
+        ev[3].synchronize()
+        step_objs.append(float(st[0]))
+        step_code.append(float(st[4]))
+        for i, k in enumerate(parts):
+            parts[k].append(ev[i].elapsed_time(ev[i + 1]) / 1e3)
+    del Gamma, Rc
+    parts = {k: statistics.median(v) for k, v in parts.items()}
+    same = max(abs(a / b - 1.0) for a, b in zip(step_objs, objs))
+    check(same <= 1e-5, f"K-SVD by parts {step_objs} against the fit {objs}")
+    code_gaps = [abs(a / b - 1.0) for a, b in zip(step_code, plain_code)]
+    gaps = [abs(a / b - 1.0) for a, b in zip(step_objs, plain_objs)]
+    res_code_gaps = [abs(a / b - 1.0) for a, b in zip(step_code, res_code)]
+    res_gaps = [abs(a / b - 1.0) for a, b in zip(step_objs, res_objs)]
+    plain_spread = max(abs(a / b - 1.0) for a, b in zip(res_objs, plain_objs))
+    out["ksvd"] = {
+        "N": KSVD_N, "K": KSVD_K, "T": 8, "iters": KSVD_ITERS,
+        "fit_seconds": t_fit, "seconds_per_iter": t_fit / KSVD_ITERS,
+        "patches_per_iter_sec": KSVD_N * KSVD_ITERS / t_fit,
+        "parts_seconds_per_iter": parts, "host_syncs": syncs,
+        "launches": launches_i, "atoms_replaced": replaced,
+        "objective": objs, "objective_coding": [h["objective_coding"]
+                                                for h in hist],
+        "plain_objective": plain_objs, "plain_max_rel_gap": max(gaps),
+        "coding_objective": step_code, "plain_coding_objective": plain_code,
+        "plain_coding_max_rel_gap": max(code_gaps),
+        "plain_atoms_replaced": plain_replaced,
+        "residual_objective": res_objs, "residual_coding_objective": res_code,
+        "residual_max_rel_gap": max(res_gaps),
+        "residual_coding_max_rel_gap": max(res_code_gaps),
+        "plain_forms_max_rel_gap": plain_spread, "k1_block": held,
+        "final_rmse": hist[-1]["rmse"], "peak_bytes": peak_dense,
+        "init_gpu_cpu_max_err": init_err}
+    print(f"K-SVD N={KSVD_N} K={KSVD_K} T=8 {KSVD_ITERS} iterations: "
+          f"{t_fit:.4f} s = {t_fit / KSVD_ITERS:.4f} s an iteration, "
+          f"{KSVD_N * KSVD_ITERS / t_fit:.1f} patches x iterations/s; by "
+          f"parts (s an iteration, CUDA events): " + ", ".join(
+              f"{k} {v:.5f}" for k, v in parts.items())
+          + f"; host syncs {syncs}; atoms replaced {replaced}; objective "
+          f"{objs[0]:.2f} -> {objs[-1]:.2f}; each of the first {len(gaps)} "
+          f"iterations against the plain path's from the same D: coding "
+          f"objective within {max(code_gaps):.3g}, after the sweep within "
+          f"{max(gaps):.3g}, atoms replaced {replaced[:len(gaps)]} against "
+          f"{plain_replaced}; against the plain residual form's: coding "
+          f"within {max(res_code_gaps):.3g}, after the sweep within "
+          f"{max(res_gaps):.3g}; the two plain forms after the sweep within "
+          f"{plain_spread:.3g} of each other; peak "
+          f"{peak_dense / 2**20:.1f} MiB")
+    check(max(code_gaps) <= 1e-5 and max(res_code_gaps) <= 1e-4,
+          f"K-SVD coding objective against the plain path: {step_code} "
+          f"against {plain_code} (Gram form), {res_code} (residual form)")
+    check(max(gaps) <= 0.01 and max(res_gaps) <= 0.01,
+          f"K-SVD against the plain path: {step_objs} against {plain_objs} "
+          f"(Gram form), {res_objs} (residual form)")
+
+    # --- path (j): compact codes, the same data and D0.  The compact sweep
+    # runs atom blocks of 8 (Jacobi within a block), so it is held against
+    # the dense route at atom_block=8 (tests/test_dict_learning.py::
+    # test_ksvd_learner_compact_codes's pair)
+    cfg8 = dataclasses.replace(cfg2, n_iter=KSVD_COMPACT_ITERS, atom_block=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense8 = lt.KSVDLearner(cfg8).fit(X2, D0=D0)
+    t_dense8 = time.perf_counter() - t0
+    dense8_objs = [h["objective"] for h in dense8.history_]
+    del dense8
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    lt.reset_launch_counts()
+    t0 = time.perf_counter()
+    comp = lt.KSVDLearner(dataclasses.replace(cfg8, codes="compact")).fit(
+        X2, D0=D0)
+    t_comp = time.perf_counter() - t0
+    launches_j = lt.launch_counts()
+    peak_comp = torch.cuda.max_memory_allocated(dev) - base
+    oc = comp.history_[-1]["objective"]
+    od = dense8_objs[-1]
+    print(f"path (j) compact-codes fit launches: {launches_j}")
+    check(isinstance(comp.Gamma_, lt.solvers.GreedyResult),
+          "compact fit: Gamma_ is not a GreedyResult")
+    check(launches_j["omp_fused_t"] == n_blocks * KSVD_COMPACT_ITERS,
+          f"compact fit: K1 launches {launches_j}")
+    check(abs(oc - od) <= 0.05 * od,
+          f"compact fit objective {oc} against the dense route's {od}")
+    out["ksvd_compact"] = {
+        "iters": KSVD_COMPACT_ITERS, "atom_block": 8, "seconds": t_comp,
+        "objective": [h["objective"] for h in comp.history_],
+        "dense_seconds": t_dense8,
+        "dense_objective": dense8_objs,
+        "dense_b1_objective": objs[:KSVD_COMPACT_ITERS],
+        "launches": launches_j, "peak_bytes": peak_comp,
+        "dense_b1_peak_bytes": peak_dense}
+    print(f"K-SVD {KSVD_COMPACT_ITERS} iterations at atom_block=8: compact "
+          f"codes {t_comp:.4f} s, objective {oc:.2f}; dense codes "
+          f"{t_dense8:.4f} s, objective {od:.2f} (atom_block=1: "
+          f"{objs[KSVD_COMPACT_ITERS - 1]:.2f}); peak device memory compact "
+          f"{peak_comp / 2**20:.1f} MiB, dense at atom_block=1 "
+          f"{peak_dense / 2**20:.1f} MiB")
+    del comp, learner, X2
+
+    # --- path (k): the adaptive denoise of the 512^2 image at sigma=25
+    # (benchmarks/run.py:149-150), K2 launches counted apart for the
+    # training and the denoise
+    cfg_k = lt.DenoiseConfig(sigma=SIGMA, T_max=16)
+    at_denoise = {}
+    real_call = denoise_mod.Denoiser.__call__
+
+    def counted_call(self, *a, **kw):
+        at_denoise.update(lt.launch_counts())
+        return real_call(self, *a, **kw)
+
+    n_train_blocks = math.ceil(ADAPT_TRAIN / block)
+    denoise_mod.Denoiser.__call__ = counted_call
+    try:
+        torch.cuda.synchronize()
+        lt.reset_launch_counts()
+        t0 = time.perf_counter()
+        out_k, D_k = denoise_mod.denoise_adaptive(
+            noisy, SIGMA, cfg=cfg_k, K=256, n_iter=ADAPT_ITERS,
+            n_train=ADAPT_TRAIN, return_dictionary=True)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+    finally:
+        denoise_mod.Denoiser.__call__ = real_call
+    launches_k = lt.launch_counts()
+    train_k = {k: at_denoise[k] for k in launches_k}
+    den_k = {k: launches_k[k] - at_denoise[k] for k in launches_k}
+    print(f"path (k) denoise_adaptive launches: training {train_k}, "
+          f"denoise {den_k}")
+    check(train_k["omp_fused_eps"] == n_train_blocks * ADAPT_ITERS
+          and den_k["omp_fused_eps"] == 1 and den_k["fused_patches"] == 1,
+          f"adaptive denoise launches: training {train_k}, denoise {den_k}")
+    check(tuple(out_k.shape) == tuple(img.shape)
+          and bool(torch.isfinite(out_k).all()), "adaptive denoise output")
+    p_noisy = lt.psnr(noisy, img_d)
+    p_adapt = lt.psnr(out_k, img_d)
+    p_dct = lt.psnr(denoise_mod.Denoiser(lt.dct_dictionary(8, 256, device=dev),
+                                         cfg_k)(noisy), img_d)
+    check(p_adapt > p_noisy + 3.0, f"adaptive denoise PSNR {p_adapt} against "
+          f"the noisy {p_noisy}")
+    check(p_adapt >= p_dct - 0.1, f"adaptive denoise PSNR {p_adapt} against "
+          f"the DCT denoise's {p_dct}")
+    # K2 as the training ran it (T=16, the training eps) on the first
+    # block of the training patches, with the learned D, against its plain
+    # version; then the same denoise from the plain versions with that D
+    eps_k = cfg_k.gain * cfg_k.patch * SIGMA
+    train = patch_dataset([noisy.cpu().numpy().astype(np.float64)],
+                          p=cfg_k.patch, n_patches=ADAPT_TRAIN, seed=3)
+    Xt = torch.as_tensor(train[:, :block].astype(np.float32), device=dev)
+    got = cuda_omp.omp_fused(D_k, Xt, T=cfg_k.T_max, eps=eps_k,
+                             eps_mode=True)
+    want = cuda_omp.omp_fused_reference(D_k, Xt, T=cfg_k.T_max, eps=eps_k,
+                                        eps_mode=True)
+    held_k = hold_lanes(torch, got, want, Xt)
+    held_k["nsel_agree"] = float((got[3] == want[3]).double().mean())
+    held_k["max_abs_err"] = float((got[1] - want[1]).abs().max())
+    held_k["mean_nsel"] = float(got[3].double().mean())
+    del got, want
+    p_plain = lt.psnr(plain_denoise(torch, noisy, D_k, cfg_k, SIGMA), img_d)
+    print(f"K2 on an adaptive-denoise training block ({Xt.shape[1]} "
+          f"patches, K=256, T={cfg_k.T_max}, eps={eps_k}) with the learned "
+          f"D: nsel agree on {held_k['nsel_agree']:.6f} of lanes, nsel and "
+          f"picks on {held_k['agree']:.6f}, mean nsel "
+          f"{held_k['mean_nsel']:.3f}; max |dgamma| "
+          f"{held_k['max_abs_err']:.3g} (on agreeing lanes "
+          f"{held_k['gamma_rel']:.3g} of ||x||); plain denoise with the "
+          f"learned D {p_plain:.4f} dB")
+    check(held_k["nsel_agree"] >= 0.999 and held_k["agree"] >= 0.999
+          and held_k["gamma_rel"] <= 1e-5,
+          f"K2 on a training block against its plain version: {held_k}")
+    check(abs(p_adapt - p_plain) <= 0.05, f"adaptive denoise PSNR {p_adapt} "
+          f"against {p_plain} from the plain versions with the same D")
+    out["denoise_adaptive"] = {
+        "size": IMG_SIZE, "sigma": SIGMA, "K": 256, "n_iter": ADAPT_ITERS,
+        "n_train": ADAPT_TRAIN, "T_max": 16, "seconds": t_k,
+        "psnr": p_adapt, "psnr_noisy": p_noisy, "psnr_dct": p_dct,
+        "psnr_plain": p_plain, "k2_training_block": held_k,
+        "launches_training": train_k, "launches_denoise": den_k}
+    print(f"adaptive denoise {IMG_SIZE}^2 sigma={SIGMA} (K=256, "
+          f"{ADAPT_ITERS} iterations on {ADAPT_TRAIN} patches, T_max=16): "
+          f"{t_k:.4f} s; PSNR noisy {p_noisy:.4f} dB, DCT {p_dct:.4f} dB, "
+          f"adaptive {p_adapt:.4f} dB, plain versions with its D "
+          f"{p_plain:.4f} dB")
+    return (launches_i, launches_j, launches_k), out
+
+
 def main():
     import torch
 
@@ -362,8 +803,7 @@ def main():
         select_abs_argmax, select_abs_argmax_reference,
         smem_bytes as select_smem_bytes,
     )
-    from lyssandra_tpu_torch.ops.patches import weighted_reconstruct
-    from lyssandra_tpu_torch.solvers.greedy import GreedyResult, _omp_impl
+    from lyssandra_tpu_torch.solvers.greedy import _omp_impl
     from lyssandra_tpu_torch.solvers.lasso import (
         _fs_cold_supported, host_syncs,
     )
@@ -1287,12 +1727,6 @@ def main():
           f"within {llc_err:.3g} of a float64 solve")
     del Gl
 
-    paths = (launches, launches_g, launches_b, launches_d, launches_e,
-             launches_f, launches_inp, launches_h)
-    for name in launches:
-        total = sum(counts[name] for counts in paths)
-        check(total > 0, f"kernel {name} not launched on any main path")
-
     ref = omp_fused_reference(Db, Xb, T=T)
     check(tuple(res.idx.shape) == (Xb.shape[1], T), "batch_omp idx shape")
     check(bool(torch.isfinite(res.gamma).all()), "batch_omp gamma finite")
@@ -1300,21 +1734,7 @@ def main():
     check(agree >= 0.999, f"batch_omp idx agreement {agree}")
     del ref
 
-    def plain_denoise():
-        """The same forward from the plain versions only."""
-        T1 = min(10, cfg.T_max)
-        Xc, means, _ = fused_patch_pipeline_reference(noisy, 8, do_dc=True)
-        r = GreedyResult(*omp_fused_reference(
-            Dd, Xc, T=T1, eps=eps, eps_mode=True))
-        Gamma = r.dense(Dd.shape[1])
-        bad = torch.nonzero((r.nsel == T1) & (r.err > eps * eps))[:, 0]
-        if len(bad):
-            Gamma[:, bad] = _omp_impl(Dd, Xc[:, bad], eps, T=cfg.T_max,
-                                      eps_mode=True).dense(Dd.shape[1])
-        Xhat = Dd @ Gamma + means[None, :]
-        return weighted_reconstruct(Xhat, noisy, 8, cfg.lam / SIGMA)
-
-    out_plain = plain_denoise()
+    out_plain = plain_denoise(torch, noisy, Dd, cfg, SIGMA)
     check(tuple(out.shape) == (IMG_SIZE, IMG_SIZE), "denoise shape")
     check(bool(torch.isfinite(out).all()), "denoise output finite")
     p_noisy = lt.psnr(noisy, img_d)
@@ -1386,7 +1806,8 @@ def main():
         print(f"lasso encoder {what} p={P4} K={K4} N={N4}: {ms:.3f} ms = "
               f"{N4 / ms * 1e3:.1f} patches/s; host syncs per call {syncs}")
     den_ms = cuda_ms(torch, lambda: denoiser(noisy))
-    den_plain_ms = cuda_ms(torch, plain_denoise)
+    den_plain_ms = cuda_ms(torch, lambda: plain_denoise(torch, noisy, Dd, cfg,
+                                                        SIGMA))
     print(f"denoise {IMG_SIZE}^2: kernel path {den_ms / 1e3:.4f} s, plain "
           f"path {den_plain_ms / 1e3:.4f} s")
     for cd in ("f32", "bf16"):
@@ -1415,13 +1836,24 @@ def main():
     print(f"inpaint {IMG_SIZE}^2 K=256 T=8 ({NP} patches): "
           f"{inp_ms / 1e3:.4f} s")
 
+    # --- 8. the dictionary-learning paths
+    (launches_i, launches_j, launches_k), ksvd_out = ksvd_paths(
+        torch, lt, dev, img, noisy, img_d)
+    paths = (launches, launches_g, launches_b, launches_d, launches_e,
+             launches_f, launches_inp, launches_h, launches_i, launches_j,
+             launches_k)
+    for name in launches:
+        total = sum(counts[name] for counts in paths)
+        check(total > 0, f"kernel {name} not launched on any main path")
+
     # library_ms: one PyTorch call computing the same function, where one
     # exists (K7's is the reference profile's matmul + argmax pair)
     kernels = [
         {"name": "omp_fused (fixed T)", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
          "replaces": "lyssandra_tpu/ops/pallas_omp.py:79",
-         "launches": launches["omp_fused_t"] + launches_b["omp_fused_t"],
+         "launches": launches["omp_fused_t"] + launches_b["omp_fused_t"]
+         + launches_i["omp_fused_t"] + launches_j["omp_fused_t"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -1431,14 +1863,16 @@ def main():
         {"name": "omp_fused (eps exit)", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
          "replaces": "lyssandra_tpu/ops/pallas_omp.py:235",
-         "launches": launches["omp_fused_eps"], "max_abs_err": k2_err,
+         "launches": launches["omp_fused_eps"] + launches_k["omp_fused_eps"],
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None,
          "lanes_per_block": k2_lanes},
         {"name": "fused_patches", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/fused_patches.cu",
          "replaces": "lyssandra_tpu/ops/pallas_patches.py:37",
-         "launches": launches["fused_patches"], "max_abs_err": k3_err,
+         "launches": launches["fused_patches"] + launches_k["fused_patches"],
+         "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None,
          "graph_ms": k3_graph_ms, "variants": k3_times},
@@ -1488,6 +1922,7 @@ def main():
                                                  "plain_ms", "bound_ms")),
               f"non-finite measurement for {k['name']}")
         check(k["launches"] > 0, f"{k['name']} launched no time on its path")
+    print(json.dumps(ksvd_out))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,9 @@ for tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
 Ported so far: the patch ops, the DCT dictionary, the greedy solvers
 (OMP, Batch-OMP, group OMP, NN-OMP, masked OMP, thresholding),
 feature-sign lasso coding, FISTA and LLC, the ``SparseEncoder`` front end
-with those routes, the error-constrained denoiser and inpainting.
+with those routes, the error-constrained and the adaptive denoiser,
+inpainting, K-SVD dictionary learning (``KSVDLearner``) and the
+experiment ``Workspace``.
 
 Entry points run on the GPU unless the caller asks for the CPU, by
 ``device="cpu"`` or by handing over CPU tensors (``_device.py``).
@@ -32,11 +34,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from lyssandra_tpu_torch.config import DenoiseConfig  # noqa: E402
+from lyssandra_tpu_torch.config import DenoiseConfig, KSVDConfig  # noqa: E402
 from lyssandra_tpu_torch.ops import (  # noqa: E402
     contrast_normalize,
     dct_dictionary,
     extract_patches,
+    init_dictionary,
     launch_counts,
     normalize_atoms,
     reconstruct_from_patches,
@@ -56,12 +59,17 @@ from lyssandra_tpu_torch.solvers import (  # noqa: E402
     sparse_encoder,
     threshold_code,
 )
+from lyssandra_tpu_torch.dict_learning import KSVDLearner, ksvd  # noqa: E402
 from lyssandra_tpu_torch.apps import Denoiser, denoise, psnr  # noqa: E402
+from lyssandra_tpu_torch.utils import Workspace  # noqa: E402
 
 __all__ = [
     "DenoiseConfig",
     "Denoiser",
+    "KSVDConfig",
+    "KSVDLearner",
     "SparseEncoder",
+    "Workspace",
     "batch_omp",
     "contrast_normalize",
     "dct_dictionary",
@@ -70,6 +78,8 @@ __all__ = [
     "feature_sign",
     "fista",
     "group_omp",
+    "init_dictionary",
+    "ksvd",
     "lasso",
     "launch_counts",
     "llc",

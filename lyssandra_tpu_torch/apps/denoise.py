@@ -20,13 +20,15 @@ import numpy as np
 import torch
 
 from lyssandra_tpu_torch._device import resolve_device
-from lyssandra_tpu_torch.config import DenoiseConfig
+from lyssandra_tpu_torch.config import DenoiseConfig, KSVDConfig
+from lyssandra_tpu_torch.dict_learning.ksvd import KSVDLearner
 from lyssandra_tpu_torch.ops.cuda_patches import fused_patch_pipeline
 from lyssandra_tpu_torch.ops.patches import (
     extract_patches,
     remove_dc,
     weighted_reconstruct,
 )
+from lyssandra_tpu_torch.solvers.encoder import SparseEncoder
 from lyssandra_tpu_torch.solvers.greedy import (
     GreedyResult,
     _fused_supported,
@@ -34,6 +36,7 @@ from lyssandra_tpu_torch.solvers.greedy import (
     _omp_impl,
     batch_omp,
 )
+from lyssandra_tpu_torch.utils.datasets import patch_dataset
 
 
 def _eps_two_phase(D, Xc, *, eps, T1, T_max, cap=4096, order="raster"):
@@ -160,6 +163,36 @@ def denoise(noisy, D, sigma: float, *, cfg: DenoiseConfig | None = None,
     """Functional entry point (oracle.denoise parity)."""
     cfg = cfg or DenoiseConfig()
     return Denoiser(D, cfg, mesh=mesh, device=device)(noisy, sigma)
+
+
+def denoise_adaptive(noisy, sigma: float, *, cfg: DenoiseConfig | None = None,
+                     K: int = 256, n_iter: int = 12, n_train: int = 30000,
+                     mesh=None, return_dictionary: bool = False,
+                     device=None):
+    """The adaptive Elad-Aharon pipeline: train a K-SVD dictionary (DCT
+    start) on ``n_train`` patches of the noisy image itself with the same
+    error-stopped coder, then denoise with it.  Runs on ``device``
+    (default: where ``noisy`` lies if it is a tensor, else the GPU).
+    Returns the image, and with ``return_dictionary`` also D."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "denoise_adaptive(mesh=...) is not ported yet (ROADMAP A8)")
+    device = resolve_device(device, noisy)
+    cfg = cfg or DenoiseConfig(sigma=sigma)
+    noisy_np = (noisy.detach().cpu().numpy() if isinstance(noisy, torch.Tensor)
+                else np.asarray(noisy)).astype(np.float64)
+    dim = cfg.patch * cfg.patch * (
+        noisy_np.shape[2] if noisy_np.ndim == 3 else 1)
+    eps = cfg.gain * math.sqrt(dim) * float(sigma)
+    train = patch_dataset([noisy_np], p=cfg.patch, n_patches=n_train,
+                          seed=3).astype(np.float32)
+    enc = SparseEncoder("bomp", {"T": cfg.T_max, "eps": eps},
+                        check_atoms=False, device=device)
+    learner = KSVDLearner(
+        KSVDConfig(K=K, T=cfg.T_max, n_iter=n_iter, init="dct"),
+        encoder=enc, device=device).fit(train)
+    out = Denoiser(learner.D_, cfg, device=device)(noisy, sigma)
+    return (out, learner.D_) if return_dictionary else out
 
 
 def psnr(a, b, peak: float = 255.0) -> float:

@@ -10,7 +10,10 @@ from lyssandra_tpu_torch.ops.cuda_select import select_abs_argmax
 from lyssandra_tpu_torch.ops.dictionaries import (
     dct_dictionary,
     dct_dictionary_color,
+    init_dictionary,
+    mutual_coherence,
     normalize_atoms,
+    replace_unused_atoms,
 )
 from lyssandra_tpu_torch.ops.patches import (
     contrast_normalize,

@@ -1,12 +1,34 @@
-"""Synthetic standard images and the patch sampler, copied from
-``lyssandra_tpu.utils.datasets`` (a copy and not an import: importing the
-reference package pulls in ``jax``).  ``tests/test_torch_package.py`` and
-``tests/test_torch_lasso.py`` check that the copies give the reference's
-pixels and patches."""
+"""Synthetic standard images, the image loader and the patch sampler,
+copied from ``lyssandra_tpu.utils.datasets`` (a copy and not an import:
+importing the reference package pulls in ``jax``).
+``tests/test_torch_package.py`` and ``tests/test_torch_lasso.py`` check
+that the copies give the reference's pixels and patches."""
 
 from __future__ import annotations
 
+import os
+import zlib
+
 import numpy as np
+
+
+def load_image(path: str, gray: bool = True) -> np.ndarray:
+    """Load an image file to float64 [0, 255] (.npy/.npz directly, other
+    formats through PIL, which must be installed)."""
+    if path.endswith((".npy", ".npz")):
+        arr = np.load(path)
+        if hasattr(arr, "keys"):
+            arr = arr[list(arr.keys())[0]]
+        return np.asarray(arr, np.float64)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            "PIL unavailable; provide .npy images instead") from e
+    img = Image.open(path)
+    if gray:
+        img = img.convert("L")
+    return np.asarray(img, np.float64)
 
 
 def synthetic_image(
@@ -96,6 +118,30 @@ def synthetic_color_image(
         gain = rng.uniform(0.85, 1.0)
         chans.append(np.clip(gain * luma + chroma, 0.0, 1.0))
     return 255.0 * np.stack(chans, axis=-1)
+
+
+def standard_test_image(
+    name: str = "barbara", size: int = 256, color: bool = False
+) -> np.ndarray:
+    """Stand-ins for the standard denoising test images.
+
+    If a real image file exists under $LYSSA_DATA_DIR/<name>.{png,pgm,npy},
+    it is loaded; otherwise a procedural image of the matching kind is
+    generated ('barbara' -> oriented textures, 'lena' -> smooth + edges,
+    'boat' -> edges), seeded by a stable digest of the name.
+    """
+    data_dir = os.environ.get("LYSSA_DATA_DIR", "")
+    for ext in (".png", ".pgm", ".npy"):
+        path = os.path.join(data_dir, name + ext)
+        if data_dir and os.path.exists(path):
+            return load_image(path, gray=not color)
+    kind = {"barbara": "texture", "lena": "mix", "boat": "edges"}.get(
+        name, "mix")
+    # Python's str hash is salted per process; crc32 is not
+    seed = zlib.crc32(name.encode())
+    if color:
+        return synthetic_color_image(kind, size=size, seed=seed)
+    return synthetic_image(kind, size=size, seed=seed)
 
 
 def patch_dataset(

@@ -188,3 +188,26 @@ def test_denoise_colour_image(rng):
                                        cfg=JDenoiseConfig(**cfg)))
     assert got.shape == img.shape
     assert abs(_psnr(got, img) - _psnr(want, img)) < 0.01
+
+
+@pytest.mark.parametrize("colour", [False, True], ids=["grey96", "colour64"])
+def test_denoise_adaptive_matches_reference(rng, colour):
+    # the adaptive pipeline (K-SVD on the noisy image's patches, then the
+    # denoise) in both packages: PSNR within 0.05 dB.  The K-SVD starts
+    # from the DCT, so both fits start from the same D
+    if colour:
+        img = np.stack([_toy_image(64), _toy_image(64).T,
+                        255 - _toy_image(64)], axis=-1)
+    else:
+        img = _toy_image(96)
+    noisy = (img + 25.0 * rng.standard_normal(img.shape)).astype(np.float32)
+    kw = dict(K=64, n_iter=4, n_train=2000)
+    got, D = tdenoise.denoise_adaptive(
+        noisy, 25.0, cfg=lt.DenoiseConfig(sigma=25.0, T_max=8),
+        return_dictionary=True, device="cpu", **kw)
+    want = jdenoise.denoise_adaptive(
+        noisy, 25.0, cfg=JDenoiseConfig(sigma=25.0, T_max=8), **kw)
+    assert got.shape == img.shape
+    assert tuple(D.shape) == ((192 if colour else 64), 64)
+    assert abs(_psnr(got.numpy(), img) - _psnr(want, img)) < 0.05
+    assert _psnr(got.numpy(), img) > _psnr(noisy, img) + 3.0

@@ -9,7 +9,7 @@ import torch
 
 import lyssandra_tpu_torch as lt
 from lyssandra_tpu_torch._device import resolve_device
-from lyssandra_tpu_torch.apps import inpaint
+from lyssandra_tpu_torch.apps import denoise_adaptive, inpaint
 from lyssandra_tpu_torch.solvers import masked_omp
 from lyssandra_tpu_torch.utils.interop import (
     denoiser_from_reference,
@@ -50,6 +50,13 @@ ENTRY_POINTS = {
         np.full((12, 12), 100.0), np.ones((12, 12)), np.asarray(
             lt.dct_dictionary(4, 16, device="cpu")), T=2, patch=4, **kw),
     "dct_dictionary": lambda D, X, **kw: lt.dct_dictionary(4, 16, **kw),
+    "init_dictionary": lambda D, X, **kw: lt.init_dictionary(X, 8, **kw),
+    "ksvd": lambda D, X, **kw: lt.KSVDLearner(
+        lt.KSVDConfig(K=8, T=2, n_iter=1), **kw).fit(X).D_,
+    "denoise_adaptive": lambda D, X, **kw: denoise_adaptive(
+        np.full((12, 12), 100.0), 20.0, cfg=lt.DenoiseConfig(
+            patch=4, sigma=20.0, T_max=2), K=16, n_iter=1, n_train=40,
+        **kw),
     "dictionary_from_numpy": lambda D, X, **kw: dictionary_from_numpy(D,
                                                                       **kw),
     "denoiser_from_reference": lambda D, X, **kw: denoiser_from_reference(

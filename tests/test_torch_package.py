@@ -14,8 +14,14 @@ import torch
 
 import lyssandra_tpu_torch as lt
 from lyssandra_tpu.config import DenoiseConfig as JDenoiseConfig
+from lyssandra_tpu.config import KSVDConfig as JKSVDConfig
+from lyssandra_tpu.utils.datasets import standard_test_image as j_standard
 from lyssandra_tpu.utils.datasets import synthetic_image as j_synthetic
-from lyssandra_tpu_torch.utils.datasets import synthetic_image
+from lyssandra_tpu_torch.utils.datasets import (
+    load_image,
+    standard_test_image,
+    synthetic_image,
+)
 from lyssandra_tpu_torch.utils.interop import (
     denoiser_from_reference,
     dictionary_from_numpy,
@@ -31,7 +37,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, lyssandra_tpu_torch, lyssandra_tpu_torch.utils."
             "interop, lyssandra_tpu_torch.utils.datasets, "
             "lyssandra_tpu_torch.solvers.lasso, lyssandra_tpu_torch.ops."
-            "cuda_fs; bad = [m for m in sys.modules if m.split('.')[0] in "
+            "cuda_fs, lyssandra_tpu_torch.dict_learning.ksvd, "
+            "lyssandra_tpu_torch.utils.workspace, "
+            "lyssandra_tpu_torch.apps.denoise; bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lyssandra_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -63,18 +71,22 @@ def test_denoise_config_matches_reference():
     assert ours == ref
 
 
+def test_ksvd_config_matches_reference():
+    ours = [(f.name, f.default) for f in dataclasses.fields(lt.KSVDConfig)]
+    ref = [(f.name, f.default) for f in dataclasses.fields(JKSVDConfig)]
+    assert ours == ref
+
+
 # top-level names of the reference that the port does not have yet, each
 # with the ROADMAP item that ports it
 NOT_PORTED = {
-    "KSVDConfig": "A2", "KSVDLearner": "A2", "ksvd": "A2",
-    "init_dictionary": "A2",
     "OnlineDLConfig": "A3", "OnlineDictionaryLearner": "A3",
     "LCKSVD": "A4", "LCKSVDConfig": "A4", "LinearClassifier": "A4",
     "LinearSVM": "A4", "SRCClassifier": "A4",
     "LarsPath": "A5", "lars": "A5", "lars_path": "A5", "lasso_lars": "A5",
     "FeatureExtractor": "A6", "WhitenConfig": "A6", "Whitener": "A6",
     "ZCAWhitener": "A6",
-    "Workspace": "A7", "enable_compile_cache": "A7",
+    "enable_compile_cache": "A7",
     "OMPConfig": "A7", "LassoConfig": "A7",
     "MeshConfig": "A8",
 }
@@ -94,7 +106,8 @@ def test_top_level_names_match_reference():
     assert not stale, f"listed as not ported but present: {stale}"
     assert set(NOT_PORTED) <= ref
     for name in ("contrast_normalize", "normalize_atoms",
-                 "reconstruct_from_patches"):
+                 "reconstruct_from_patches", "KSVDConfig", "KSVDLearner",
+                 "ksvd", "init_dictionary", "Workspace"):
         assert name in lt.__all__
 
 
@@ -102,6 +115,26 @@ def test_top_level_names_match_reference():
 def test_synthetic_image_matches_reference(kind):
     np.testing.assert_array_equal(synthetic_image(kind, 48, seed=7),
                                   j_synthetic(kind, 48, seed=7))
+
+
+@pytest.mark.parametrize("name", ["barbara", "lena", "boat"])
+@pytest.mark.parametrize("color", [False, True], ids=["grey", "colour"])
+def test_standard_test_image_matches_reference(name, color, monkeypatch):
+    monkeypatch.delenv("LYSSA_DATA_DIR", raising=False)
+    got = standard_test_image(name, 40, color=color)
+    assert got.shape == ((40, 40, 3) if color else (40, 40))
+    np.testing.assert_array_equal(got, j_standard(name, 40, color=color))
+
+
+def test_standard_test_image_reads_the_data_dir(tmp_path, monkeypatch):
+    img = np.arange(36, dtype=np.float64).reshape(6, 6)
+    np.save(tmp_path / "barbara.npy", img)
+    monkeypatch.setenv("LYSSA_DATA_DIR", str(tmp_path))
+    np.testing.assert_array_equal(standard_test_image("barbara"), img)
+    np.testing.assert_array_equal(standard_test_image("barbara"),
+                                  j_standard("barbara"))
+    np.savez(tmp_path / "z.npz", first=img)
+    np.testing.assert_array_equal(load_image(str(tmp_path / "z.npz")), img)
 
 
 def test_launch_counters_stay_zero_on_cpu(rng):

@@ -151,8 +151,39 @@ Phases, in order; any failure raises and exits non-zero:
      of lanes, gamma within 1e-5 of ||x|| there); PSNR above the noisy image's + 3 dB, at least the DCT
      denoise's - 0.1 dB, and within 0.05 dB of the same denoise from the
      plain versions with the learned D;
+  9. online dictionary learning and the classifiers, after phase 8: (l)
+     OnlineDictionaryLearner.fit at config 4's full width (100,000 unit-norm
+     8x8x3 patches of the four synthetic colour images and 2,048 held out,
+     K=1024, lam=0.15, batch 4,096, chunks of 8, code_blocks=4; one
+     warm-up chunk, its host syncs counted in torch's sync debug mode,
+     then the timed epoch of 24 minibatches, ODL_CHUNKS chunks): no kernel
+     launch (its in-loop coder is the plain loop), the reference's history
+     keys, the holdout objective falling, atoms in the unit ball; one more
+     minibatch through _online_chunk from the learned state: A and B grow
+     by Gamma Gamma^T and X Gamma^T (float64, 1e-4 of their norms), the
+     in-loop codes meet tests/test_lasso.py's KKT conditions and come within
+     rtol 1e-3 of feature_sign's plain path (cold_backend="xla",
+     cold_unroll=0) per lane; times by parts (coding, statistics, atom
+     sweep, holdout) with CUDA events, and the coding's host syncs from
+     the learned D (the solver's counter); (m) partial_fit on three minibatches
+     of a stream from a data D0: one K6 and two product launches a
+     minibatch, K6 on the first held to the plain version's own
+     float32/float64 agreement (less 0.1) as in 5d, fit over the same
+     minibatches from the same state within 1% in holdout objective; (n)
+     config 5 on digits-like data made here (digits_problem: 1,257 training
+     and 540 test images in 10 classes): LC-KSVD (K=500, T=8, 20
+     iterations) fit with its parts, 21 K1 and 21 product launches, unit
+     atoms, A_ and W_ shapes; SRC (T=10) predict, one K1 launch; K1 lane
+     by lane against its plain version in float32 and float64, as in (i),
+     on SRC's coding (K=1,257) and on LC-KSVD's stacked coding (p=574,
+     K=500, T=8) from the learned stacked dictionary: picks equal to the
+     float64 solve's on as many lanes as the plain version's (less 0.5%),
+     gamma within 1e-4 of ||x|| and err within 1e-6 of ||x||^2 where the
+     picks agree; both accuracies above 0.8 and within 0.02 of the
+     same pipeline with K1 replaced by its plain version;
      every kernel must have launched on one of the paths;
-then one JSON line of the results of paths (i)-(k), one JSON line of
+then one JSON line of the results of paths (i)-(k), one of paths (l)-(n),
+one JSON line of
 per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
 of their type, counted from this run's data for the cheapest form of the
@@ -189,6 +220,15 @@ KSVD_IMG, KSVD_N, KSVD_K, KSVD_ITERS = 512, 50000, 512, 20
 KSVD_PARTS_ITERS = KSVD_COMPACT_ITERS = 3
 # config 3's adaptive denoise (benchmarks/run.py:149-150)
 ADAPT_TRAIN, ADAPT_ITERS = 30000, 12
+# config 4's online learning (benchmarks/run.py:216-246): 100,000 + 2,048
+# patches, K=1024, batch 4,096, chunks of 8 minibatches; the timed epoch
+# runs ODL_CHUNKS chunks (3: all 24 minibatches), after one warm-up chunk,
+# and ODL_PARTS minibatches are timed again by parts
+ODL_N, ODL_HOLD, ODL_BS, ODL_CHUNKS, ODL_PARTS = 100000, 2048, 4096, 3, 2
+# config 5 (benchmarks/run.py:282-327): digits-like 8x8 images in 10
+# classes, 1,257 for training and 540 for testing; LC-KSVD at K=500, T=8,
+# 20 iterations; SRC at T=10
+DIGITS_N, LC_K, LC_ITERS, SRC_T = 1797, 500, 20, 10
 # published H100 SXM peaks (NVIDIA's data sheet), for the bounds
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
@@ -269,6 +309,57 @@ def sweep_problem():
     X = rng.standard_normal((P, N_SWEEP))
     X /= np.linalg.norm(X, axis=0, keepdims=True)
     return D.astype(np.float32), X.astype(np.float32)
+
+
+def online_problem():
+    """Config 4's data (benchmarks/run.py:216-235): ODL_N + ODL_HOLD
+    unit-norm 8x8x3 patches of the four synthetic colour images, seed 1;
+    returns (X, the holdout set)."""
+    from lyssandra_tpu_torch.utils.datasets import (
+        patch_dataset, synthetic_color_image,
+    )
+
+    imgs = [synthetic_color_image(k, 256, seed=s)
+            for s, k in enumerate(("texture", "mix", "smooth", "edges"))]
+    X = patch_dataset(imgs, p=8, n_patches=ODL_N + ODL_HOLD,
+                      seed=1).astype(np.float32)
+    X /= np.maximum(np.linalg.norm(X, axis=0, keepdims=True), 1e-8)
+    return X[:, :ODL_N], X[:, ODL_N:]
+
+
+def digits_problem(seed=0, n=DIGITS_N, C=10, test=0.3):
+    """A stand-in for sklearn's digits (config 5), which the machine with
+    the card lacks: n 8x8 images in C classes with integer pixels 0..16.
+    Each class is three strokes; each image moves them together by up to
+    one pixel and each end by noise, draws them with a random width and
+    brightness, and adds uniform noise.  Columns unit-normalized, split 70/30
+    stratified by class.  Returns (Xtr, ytr, Xte, yte)."""
+    rng = np.random.default_rng(seed)
+    g = np.arange(8) + 0.5
+    yy, xx = np.meshgrid(g, g, indexing="ij")
+    pix = np.stack([yy.ravel(), xx.ravel()], axis=1)          # (64, 2)
+    strokes = rng.uniform(1.0, 7.0, (C, 3, 2, 2))
+    y = np.arange(n) % C
+    X = np.zeros((64, n))
+    for i, c in enumerate(y):
+        ends = strokes[c] + rng.uniform(-1.0, 1.0, 2) + rng.normal(
+            0.0, 0.5, (3, 2, 2))
+        width = rng.uniform(0.55, 0.85)
+        img = np.zeros(64)
+        for a, b in ends:
+            ab = b - a
+            t = np.clip((pix - a) @ ab / max(ab @ ab, 1e-9), 0.0, 1.0)
+            d2 = ((pix - a - t[:, None] * ab) ** 2).sum(axis=1)
+            img = np.maximum(img, np.exp(-d2 / (2 * width ** 2)))
+        img = img * rng.uniform(0.8, 1.2) + 0.15 * rng.random(64)
+        X[:, i] = np.round(16 * np.clip(img, 0.0, 1.0))
+    X /= np.maximum(np.linalg.norm(X, axis=0, keepdims=True), 1e-9)
+    n_te = [int(round(test * (y == c).sum())) for c in range(C)]
+    te = np.concatenate([rng.permutation(np.where(y == c)[0])[:n_te[c]]
+                         for c in range(C)])
+    tr = np.setdiff1d(np.arange(n), te)
+    return (X[:, tr].astype(np.float32), y[tr], X[:, te].astype(np.float32),
+            y[te])
 
 
 def bound_ms(nbytes, flops, peak_flops):
@@ -404,6 +495,60 @@ def hold_lanes(torch, got, want, X):
             "gamma_rel": most(dg, same), "err_rel": most(de, same),
             "lanes_differ": int((~same).sum()),
             "differ_err_rel": most(de, ~same)}
+
+
+def hold_k1(torch, cuda_omp, D, X, T):
+    """K1 on (D, X) at T steps against its plain version, lane by lane
+    (hold_lanes), with the share of lanes on which the kernel and the
+    plain version each pick as a float64 solve does."""
+    got = cuda_omp.omp_fused(D, X, T=T)
+    want = cuda_omp.omp_fused_reference(D, X, T=T)
+    want64 = cuda_omp.omp_fused_reference(D.double(), X.double(), T=T)
+    held = hold_lanes(torch, got, want, X)
+    held["kernel_f64"] = hold_lanes(torch, got, want64, X)["agree"]
+    held["plain_f64"] = hold_lanes(torch, want, want64, X)["agree"]
+    return held
+
+
+def lcksvd_stacked(torch, lc, X, y):
+    """A fitted LC-KSVD's stacked coding problem: the unit columns of
+    [D_; sqrt(alpha) A_; sqrt(beta) W_], which are the fit's last D~
+    rescaled, and X~ = [X; sqrt(alpha) Q; sqrt(beta) H]."""
+    from lyssandra_tpu_torch.classify import one_hot
+    from lyssandra_tpu_torch.classify.lc_ksvd import build_label_consistency
+
+    sa, sb = math.sqrt(lc.cfg.alpha), math.sqrt(lc.cfg.beta)
+    Dt = torch.cat([lc.D_, sa * lc.A_, sb * lc.W_], dim=0)
+    Dt = Dt / torch.linalg.norm(Dt, dim=0, keepdim=True)
+    Xt = torch.cat([X, sa * build_label_consistency(y, lc.cfg.K, lc.C_,
+                                                    X.device),
+                    sb * one_hot(y, lc.C_, X.device)], dim=0)
+    return Dt, Xt
+
+
+def fs_agree(torch, a, b):
+    """The share of lanes on which two fused cold-start results (idx, mask,
+    theta, gact, gr, done) agree in done, idx and mask, and that mask."""
+    same = ((a[5] == b[5]) & (a[0] == b[0]).all(dim=1)
+            & (a[1] == b[1]).all(dim=1))
+    return float(same.float().mean()), same
+
+
+def lasso_kkt(torch, D, X, G, lam):
+    """tests/test_lasso.py's KKT residuals of codes G (K, N): the largest
+    |grad + lam sign(g)| over the active entries and |grad| over the
+    others, in float64."""
+    Gd = G.double()
+    grad = 2.0 * (D.double().T @ (D.double() @ Gd - X.double()))
+    act = Gd.abs() > 1e-10
+    return (float((grad + lam * torch.sign(Gd)).abs()[act].max()),
+            float(grad.abs()[~act].max()))
+
+
+def lasso_objectives(torch, D, X, G, lam):
+    """Per-lane lasso objectives ||x - D g||^2 + lam ||g||_1, float64."""
+    R = X.double() - D.double() @ G.double()
+    return (R * R).sum(dim=0) + lam * G.double().abs().sum(dim=0)
 
 
 def plain_denoise(torch, noisy, D, cfg, sigma):
@@ -769,6 +914,338 @@ def ksvd_paths(torch, lt, dev, img, noisy, img_d):
           f"adaptive {p_adapt:.4f} dB, plain versions with its D "
           f"{p_plain:.4f} dB")
     return (launches_i, launches_j, launches_k), out
+
+
+def learning_paths(torch, lt, dev):
+    """Paths (l)-(n): online dictionary learning at config 4's full width
+    (``fit``, then ``partial_fit``) and config 5's classifiers.  Returns
+    (the launches of each path, one JSON-able dict of results)."""
+    import importlib
+
+    online = importlib.import_module(
+        "lyssandra_tpu_torch.dict_learning.online")
+    cuda_omp = importlib.import_module("lyssandra_tpu_torch.ops.cuda_omp")
+    from lyssandra_tpu_torch.ops.cuda_fs import (
+        fs_cold_fused, fs_cold_fused_reference,
+    )
+    from lyssandra_tpu_torch.solvers.lasso import host_syncs
+
+    out = {}
+    X, Xh = online_problem()
+    X, Xh = torch.as_tensor(X, device=dev), torch.as_tensor(Xh, device=dev)
+    cfg4 = lt.OnlineDLConfig(K=K4, lam=LAM, batch_size=ODL_BS)
+    chunk = cfg4.chunk_batches * ODL_BS
+    n_fit = min(ODL_CHUNKS * chunk, ODL_N)
+    n_mb = n_fit // ODL_BS
+    full_mb = ODL_N // ODL_BS
+    print(f"path (l) depth: {n_mb} of the epoch's {full_mb} minibatches "
+          f"({ODL_CHUNKS} chunks of {cfg4.chunk_batches})")
+
+    # --- path (l): fit at config 4 (benchmarks/run.py:216-246).  A warm-up
+    # fit of one chunk first, its host syncs counted with torch's sync
+    # debug mode; then the timed epoch, its syncs counted by the solver's
+    # own counter (no debug-mode overhead in the time)
+    warm, syncs_warm = count_syncs(torch, lambda: lt.OnlineDictionaryLearner(
+        cfg4).fit(X[:, :chunk], holdout=Xh))
+    del warm
+    learner = lt.OnlineDictionaryLearner(cfg4)
+    torch.cuda.synchronize()
+    lt.reset_launch_counts()
+    s0 = host_syncs()
+    t0 = time.perf_counter()
+    learner.fit(X[:, :n_fit], n_epochs=1, holdout=Xh)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    solver_syncs = host_syncs() - s0
+    launches_l = lt.launch_counts()
+    print(f"path (l) OnlineDictionaryLearner.fit launches: {launches_l}")
+    check(not any(launches_l.values()),
+          f"online fit: its in-loop coder runs no kernel, got {launches_l}")
+    hist = learner.history_
+    keys = {"step", "batch_objective", "avg_nnz", "holdout_objective",
+            "seconds", "patches_per_sec"}            # the reference's keys
+    check(len(hist) == ODL_CHUNKS and all(keys == set(h) for h in hist),
+          f"online history: {len(hist)} entries, keys {sorted(hist[0])}")
+    trace = [h["holdout_objective"] for h in hist]
+    check(all(math.isfinite(v) for v in trace) and trace[-1] < trace[0],
+          f"online holdout objective did not fall: {trace}")
+    D = learner.D_
+    nrm_max = float(torch.linalg.norm(D, dim=0).max())
+    check(tuple(D.shape) == (P4, K4) and nrm_max <= 1.0 + 1e-5
+          and bool(torch.isfinite(D).all()), f"online D: atom norm {nrm_max}")
+
+    # one more minibatch through _online_chunk from the learned state, its
+    # in-loop codes recorded: A and B grow by Gamma Gamma^T and X Gamma^T
+    # (float64, within 1e-4 of their norms); the codes meet the KKT
+    # conditions, and their objectives are within rtol 1e-3 of
+    # feature_sign's plain path from the same D
+    st = learner.state
+    perm = np.random.default_rng(1).permutation(n_fit)[:ODL_BS]
+    Xb = X[:, torch.from_numpy(perm).to(dev)]
+    codes = []
+    real_code = online._code_batch
+
+    def recording(*a, **kw):
+        codes.append(real_code(*a, **kw))
+        return codes[-1]
+
+    online._code_batch = recording
+    try:
+        _, A1, B1, _, _ = online._online_chunk(
+            st.D, st.A, st.B, Xb[None], cfg4.lam, cfg4.beta,
+            n_sweeps=cfg4.n_sweeps, coder="feature_sign",
+            max_active=cfg4.fs_max_active, max_iter=cfg4.fs_max_iter,
+            max_inner=cfg4.fs_max_inner, code_blocks=cfg4.code_blocks)
+    finally:
+        online._code_batch = real_code
+    G = codes[0].double()
+    dA = (A1.double() - st.A.double()) - G @ G.T
+    dB = (B1.double() - st.B.double()) - Xb.double() @ G.T
+    inc_a = float(torch.linalg.norm(dA) / torch.linalg.norm(G @ G.T))
+    inc_b = float(torch.linalg.norm(dB) / torch.linalg.norm(Xb.double() @ G.T))
+    viol_act, viol_inact = lasso_kkt(torch, D, Xb, codes[0], LAM)
+    Gx = lt.feature_sign(D, Xb, LAM, cold_backend="xla", cold_unroll=0)
+    o_in = lasso_objectives(torch, D, Xb, codes[0], LAM)
+    o_x = lasso_objectives(torch, D, Xb, Gx, LAM)
+    obj_gap = float(((o_in - o_x).abs() / o_x.clamp_min(1e-12)).max())
+    print(f"online step from the learned state: |dA - G G^T| / |G G^T| "
+          f"{inc_a:.3g}, |dB - X G^T| / |X G^T| {inc_b:.3g}; in-loop codes: "
+          f"KKT active {viol_act:.3g}, inactive max {viol_inact:.6f}; "
+          f"objectives within {obj_gap:.3g} (relative) of feature_sign "
+          f"(cold_backend='xla', cold_unroll=0); mean nnz "
+          f"{float((G.abs() > 1e-10).sum(dim=0).double().mean()):.3f}")
+    check(inc_a <= 1e-4 and inc_b <= 1e-4,
+          f"online statistics increments: A {inc_a}, B {inc_b}")
+    check(viol_act < 1e-3 and viol_inact <= LAM + 1e-3,
+          f"online in-loop codes KKT: active {viol_act}, inactive "
+          f"{viol_inact}")
+    check(obj_gap <= 1e-3, f"online in-loop objectives against feature_sign: "
+          f"{obj_gap}")
+    del Gx, G, dA, dB, codes
+
+    # by parts (CUDA events): coding (its host syncs by the solver's
+    # counter), statistics, atom sweep from the learned state, then the
+    # holdout objective once
+    opts = dict(max_active=cfg4.fs_max_active, max_iter=cfg4.fs_max_iter,
+                max_inner=cfg4.fs_max_inner, warm_start=0, cold_unroll=0)
+    parts = {"coding": [], "statistics": [], "atom sweep": []}
+    parts_syncs = []
+    Dp, Ap, Bp = st.D, st.A, st.B
+    for i in range(ODL_PARTS):
+        Xp = X[:, i * ODL_BS:(i + 1) * ODL_BS]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        s0 = host_syncs()
+        ev[0].record()
+        Gp = online._code_batch(Dp, Xp, LAM, "feature_sign", opts,
+                                cfg4.code_blocks)
+        ev[1].record()
+        parts_syncs.append(host_syncs() - s0)
+        Ap = Ap + Gp @ Gp.T
+        Bp = Bp + Xp @ Gp.T
+        ev[2].record()
+        Dp = online._dict_update_body(Dp, Ap, Bp, cfg4.n_sweeps)
+        ev[3].record()
+        ev[3].synchronize()
+        for j, k in enumerate(parts):
+            parts[k].append(ev[j].elapsed_time(ev[j + 1]) / 1e3)
+    parts = {k: statistics.median(v) for k, v in parts.items()}
+    parts["holdout (s a chunk)"] = cuda_ms(
+        torch, lambda: online.holdout_objective(Dp, Xh, LAM), reps=3) / 1e3
+    del Dp, Ap, Bp, Gp
+    out["online_fit"] = {
+        "N": n_fit, "epoch_N": ODL_N, "K": K4, "p": P4, "lam": LAM,
+        "batch_size": ODL_BS, "chunk_batches": cfg4.chunk_batches,
+        "code_blocks": cfg4.code_blocks, "minibatches": n_mb,
+        "seconds": t_fit, "patches_per_sec": n_mb * ODL_BS / t_fit,
+        "chunk_seconds": [h["seconds"] for h in hist],
+        "holdout_objective": trace,
+        "avg_nnz": [h["avg_nnz"] for h in hist],
+        "parts_seconds_per_minibatch": parts,
+        "host_syncs_per_minibatch_warmup": syncs_warm / cfg4.chunk_batches,
+        "solver_syncs_per_minibatch": solver_syncs / n_mb,
+        "solver_syncs_by_parts": parts_syncs,
+        "increment_rel_err": [inc_a, inc_b],
+        "kkt": [viol_act, viol_inact], "objective_rel_gap": obj_gap,
+        "launches": launches_l}
+    print(f"online fit at config 4 ({n_mb} minibatches of {ODL_BS}, K={K4}, "
+          f"p={P4}): {t_fit:.4f} s = {n_mb * ODL_BS / t_fit:.1f} patches/s; "
+          f"chunks {[round(h['seconds'], 4) for h in hist]} s; holdout "
+          f"objective {trace}; by parts (s a minibatch, CUDA events): "
+          + ", ".join(f"{k} {v:.5f}" for k, v in parts.items())
+          + f"; host syncs a minibatch: {syncs_warm / cfg4.chunk_batches:.1f}"
+          f" (sync debug mode, warm-up chunk from a data D0), solver's "
+          f"counter {solver_syncs / n_mb:.1f} (timed epoch), {parts_syncs} "
+          f"(by parts, from the learned D)")
+
+    # --- path (m): partial_fit, three minibatches of a stream, each one
+    # feature_sign call (one K6 and two product launches); against fit over
+    # the same minibatches from the same initial state
+    X3 = X[:, :3 * ODL_BS]
+    perm3 = np.random.default_rng(11).permutation(3 * ODL_BS)
+    mbs = [X3[:, torch.from_numpy(perm3[i * ODL_BS:(i + 1) * ODL_BS]).to(dev)]
+           for i in range(3)]
+    D0 = lt.init_dictionary(mbs[0], K4, "data", cfg4.seed)
+    state0 = lt.OnlineDLState(
+        D0, torch.zeros((K4, K4), device=dev), torch.zeros((P4, K4),
+                                                           device=dev),
+        torch.zeros((), dtype=torch.int32))
+    pf = lt.OnlineDictionaryLearner(cfg4)
+    pf.state = state0
+    torch.cuda.synchronize()
+    lt.reset_launch_counts()
+    t0 = time.perf_counter()
+    for Xb in mbs:
+        pf.partial_fit(Xb)
+    torch.cuda.synchronize()
+    t_pf = time.perf_counter() - t0
+    launches_m = lt.launch_counts()
+    print(f"path (m) partial_fit launches: {launches_m}")
+    check(launches_m["fs_cold"] == 3 and launches_m["gram"] == 6
+          and sum(launches_m.values()) == 9,
+          f"partial_fit: one K6 and two product launches a minibatch "
+          f"expected, got {launches_m}")
+    got = fs_cold_fused(D0, mbs[0], lam=LAM, t_unroll=TUN)
+    want = fs_cold_fused_reference(D0, mbs[0], lam=LAM, t_unroll=TUN)
+    want64 = fs_cold_fused_reference(D0.double(), mbs[0].double(), lam=LAM,
+                                     t_unroll=TUN)
+    k6_agree, _ = fs_agree(torch, got, want)
+    k6_agree64, _ = fs_agree(torch, want64, want)
+    k6_done = [float(got[5].float().mean()), float(want[5].float().mean())]
+    del got, want, want64
+    ft = lt.OnlineDictionaryLearner(cfg4)
+    ft.state = state0
+    ft.fit(X3, seed=11)
+    h_pf = float(online.holdout_objective(pf.D_, Xh, LAM))
+    h_ft = float(online.holdout_objective(ft.D_, Xh, LAM))
+    print(f"K6 on the first partial_fit minibatch ({ODL_BS} patches) from "
+          f"D0: done/idx/mask agree with the plain version on {k6_agree:.6f} "
+          f"of lanes (plain in float64 against float32: {k6_agree64:.6f}); "
+          f"done at the handoff: kernel {k6_done[0]:.6f}, plain "
+          f"{k6_done[1]:.6f}; partial_fit x 3 {t_pf:.4f} s; holdout "
+          f"objective partial_fit {h_pf:.6f}, fit {h_ft:.6f}")
+    check(k6_agree >= k6_agree64 - 0.1
+          and abs(k6_done[0] - k6_done[1]) <= 0.005,
+          f"K6 on a partial_fit minibatch: {k6_agree} (float64 {k6_agree64}),"
+          f" done {k6_done}")
+    check(abs(h_pf - h_ft) <= 0.01 * h_ft,
+          f"partial_fit holdout {h_pf} against fit's {h_ft}")
+    out["online_partial_fit"] = {
+        "minibatches": 3, "seconds": t_pf, "launches": launches_m,
+        "k6_agree": k6_agree, "k6_plain_f64_agree": k6_agree64,
+        "k6_done": k6_done, "holdout_partial_fit": h_pf,
+        "holdout_fit": h_ft}
+    del learner, pf, ft, X, X3, mbs, state0, st
+
+    # --- path (n): config 5, LC-KSVD and SRC on digits-like data
+    Xtr, ytr, Xte, yte = digits_problem()
+    Xtr, Xte = torch.as_tensor(Xtr, device=dev), torch.as_tensor(Xte,
+                                                                 device=dev)
+    lc_cfg = lt.LCKSVDConfig(K=LC_K, T=8, n_iter=LC_ITERS)
+
+    def classify():
+        """LC-KSVD and SRC fitted and scored; launches of the fit and the
+        scoring apart; times on the host clock after a device sync."""
+        r = {}
+        torch.cuda.synchronize()
+        lt.reset_launch_counts()
+        t0 = time.perf_counter()
+        lc = lt.LCKSVD(lc_cfg).fit(Xtr, ytr)
+        torch.cuda.synchronize()
+        r["lcksvd_fit_s"] = time.perf_counter() - t0
+        r["launches_fit"] = lt.launch_counts()
+        lt.reset_launch_counts()
+        t0 = time.perf_counter()
+        r["lcksvd_accuracy"] = lc.score(Xte, yte)
+        r["lcksvd_predict_s"] = time.perf_counter() - t0
+        r["launches_predict"] = lt.launch_counts()
+        lt.reset_launch_counts()
+        t0 = time.perf_counter()
+        src = lt.SRCClassifier(T=SRC_T).fit(Xtr, ytr)
+        r["src_accuracy"] = src.score(Xte, yte)
+        r["src_predict_s"] = time.perf_counter() - t0
+        r["launches_src"] = lt.launch_counts()
+        r["timings"] = lc.timings_
+        return r, lc, src
+
+    kernel, lc, src = classify()
+    nrm_err = float((torch.linalg.norm(lc.D_, dim=0) - 1.0).abs().max())
+    print(f"path (n) LC-KSVD fit launches: {kernel['launches_fit']}; predict "
+          f"{kernel['launches_predict']}; SRC {kernel['launches_src']}")
+    check(kernel["launches_fit"]["omp_fused_t"] == LC_ITERS + 1
+          and kernel["launches_fit"]["gram"] == LC_ITERS + 1,
+          f"LC-KSVD fit: {LC_ITERS + 1} K1 and product launches expected "
+          f"(ridge init, every stacked iteration)")
+    for k in ("launches_predict", "launches_src"):
+        check(kernel[k]["omp_fused_t"] == 1 and kernel[k]["gram"] == 1,
+              f"{k}: one K1 and one product launch expected, got {kernel[k]}")
+    check(tuple(lc.D_.shape) == (64, LC_K) and tuple(lc.A_.shape)
+          == (LC_K, LC_K) and tuple(lc.W_.shape) == (10, LC_K)
+          and nrm_err <= 1e-4, f"LC-KSVD D_, A_, W_: shapes, norm {nrm_err}")
+    # K1 on SRC's coding (K = 1,257 training samples, T=10) lane by lane
+    Xn = Xte / torch.linalg.norm(Xte, dim=0, keepdim=True).clamp_min(1e-12)
+    held = hold_k1(torch, cuda_omp, src.D_, Xn, SRC_T)
+    # K1 on LC-KSVD's stacked coding (p = 64 + K + C = 574, K=500, T=8, the
+    # 1,257 training lanes with their label-consistency and one-hot rows)
+    # from the learned stacked dictionary
+    held_lc = hold_k1(torch, cuda_omp, *lcksvd_stacked(torch, lc, Xtr, ytr),
+                      8)
+    # the same pipeline with K1 replaced by its plain version
+    real_k1 = cuda_omp.omp_fused
+    cuda_omp.omp_fused = cuda_omp.omp_fused_reference
+    try:
+        plain, _, _ = classify()
+    finally:
+        cuda_omp.omp_fused = real_k1
+    check(plain["launches_fit"]["omp_fused_t"] == 0,
+          "the plain classifiers ran K1")
+    print(f"K1 on SRC's coding ({Xn.shape[1]} lanes, K={src.D_.shape[1]}, "
+          f"T={SRC_T}): picks agree with the plain version on "
+          f"{held['agree']:.6f} of lanes, there max |dgamma|/||x|| "
+          f"{held['gamma_rel']:.3g}, |derr|/||x||^2 {held['err_rel']:.3g}; "
+          f"on the {held['lanes_differ']} other lanes max |derr|/||x||^2 "
+          f"{held['differ_err_rel']:.3g}; with float64 the kernel agrees on "
+          f"{held['kernel_f64']:.6f}, the plain version on "
+          f"{held['plain_f64']:.6f}")
+    print(f"K1 on LC-KSVD's stacked coding ({Xtr.shape[1]} lanes, p="
+          f"{64 + LC_K + 10}, K={LC_K}, T=8) from the learned stacked D: picks "
+          f"agree with the plain version on {held_lc['agree']:.6f} of lanes, "
+          f"there max |dgamma|/||x|| {held_lc['gamma_rel']:.3g}, "
+          f"|derr|/||x||^2 {held_lc['err_rel']:.3g}; on the "
+          f"{held_lc['lanes_differ']} other lanes max |derr|/||x||^2 "
+          f"{held_lc['differ_err_rel']:.3g}; with float64 the kernel agrees "
+          f"on {held_lc['kernel_f64']:.6f}, the plain version on "
+          f"{held_lc['plain_f64']:.6f}")
+    print(f"config 5 (digits-like, {Xtr.shape[1]} train, {Xte.shape[1]} test):"
+          f" LC-KSVD K={LC_K} T=8 {LC_ITERS} iterations fit "
+          f"{kernel['lcksvd_fit_s']:.4f} s (" + ", ".join(
+              f"{k} {v:.4f}" for k, v in kernel["timings"].items())
+          + f"), accuracy {kernel['lcksvd_accuracy']:.4f} (plain K1 "
+          f"{plain['lcksvd_accuracy']:.4f}), predict "
+          f"{kernel['lcksvd_predict_s']:.4f} s; SRC T={SRC_T} predict "
+          f"{kernel['src_predict_s']:.4f} s, accuracy "
+          f"{kernel['src_accuracy']:.4f} (plain K1 "
+          f"{plain['src_accuracy']:.4f}); plain pipeline: fit "
+          f"{plain['lcksvd_fit_s']:.4f} s, SRC {plain['src_predict_s']:.4f} s")
+    check(held["kernel_f64"] >= held["plain_f64"] - 0.005
+          and held["gamma_rel"] <= 1e-4 and held["err_rel"] <= 1e-6
+          and held["differ_err_rel"] <= 1e-3,
+          f"K1 on SRC's coding against its plain version: {held}")
+    check(held_lc["kernel_f64"] >= held_lc["plain_f64"] - 0.005
+          and held_lc["gamma_rel"] <= 1e-4 and held_lc["err_rel"] <= 1e-6
+          and held_lc["differ_err_rel"] <= 1e-3,
+          f"K1 on LC-KSVD's stacked coding against its plain version: "
+          f"{held_lc}")
+    for k in ("lcksvd_accuracy", "src_accuracy"):
+        check(kernel[k] > 0.8 and abs(kernel[k] - plain[k]) <= 0.02,
+              f"{k} {kernel[k]} against {plain[k]} with the plain K1")
+    out["classify"] = {
+        "n_train": Xtr.shape[1], "n_test": Xte.shape[1], "K": LC_K, "T": 8,
+        "n_iter": LC_ITERS, "src_T": SRC_T, "kernel": kernel,
+        "plain": plain, "k1_src_lanes": held, "k1_stacked_lanes": held_lc,
+        "history_objective": [h["objective"] for h in lc.history_]}
+    launches_n = {k: kernel["launches_fit"][k] + kernel["launches_predict"][k]
+                  + kernel["launches_src"][k] for k in kernel["launches_fit"]}
+    return (launches_l, launches_m, launches_n), out
 
 
 def main():
@@ -1248,15 +1725,10 @@ def main():
     del D5, X5, Dz, Xz
 
     # --- 5d. K6 against its plain version, then its envelope
-    def fs_agree(a, b):
-        same = ((a[5] == b[5]) & (a[0] == b[0]).all(dim=1)
-                & (a[1] == b[1]).all(dim=1))
-        return float(same.float().mean()), same
-
     def fs_case(D, X, lam, tun, what, agree_min=0.999):
         got = fs_cold_fused(D, X, lam=lam, t_unroll=tun)
         want = fs_cold_fused_reference(D, X, lam=lam, t_unroll=tun)
-        agree, same = fs_agree(got, want)
+        agree, same = fs_agree(torch, got, want)
         check(agree >= agree_min, f"{what}: done/idx/mask agree on {agree}")
         check(torch.equal(got[2][same], want[2][same]), f"{what}: theta")
         err = max(float((a - b).abs()[same].max()) if bool(same.any())
@@ -1276,8 +1748,8 @@ def main():
     want = fs_cold_fused_reference(Dc4, Xb4, lam=LAM, t_unroll=TUN)
     want64 = fs_cold_fused_reference(Dc4.double(), Xb4.double(), lam=LAM,
                                      t_unroll=TUN)
-    agree, _ = fs_agree(got, want)
-    agree64, _ = fs_agree(want64, want)
+    agree, _ = fs_agree(torch, got, want)
+    agree64, _ = fs_agree(torch, want64, want)
     done_k = float(got[5].float().mean())
     done_p = float(want[5].float().mean())
     print(f"K6 config 4 N=2048: done/idx/mask agree with the plain version on "
@@ -1559,26 +2031,19 @@ def main():
     G4x = lt.SparseEncoder("lasso", {"lam": LAM, "cold_backend": "xla"}
                            ).encode(Xc4, Dc4)
 
-    def lasso_objective(G):
-        R = Xc4.double() - Dc4.double() @ G.double()
-        return (R * R).sum(dim=0) + LAM * G.double().abs().sum(dim=0)
-
     # Both paths stop at points whose KKT residuals are within the done
     # tolerances (1e-4 on active stationarity); on the near-singular
     # active sets of config 4's data dictionary such points may differ in
     # objective by a few 1e-5.  So: tests/test_lasso.py's tolerance (rtol
     # 1e-4, atol 1e-5) on >= 99.9% of lanes, rtol 1e-3 on every lane.
-    o_k, o_x = lasso_objective(G4), lasso_objective(G4x)
+    o_k = lasso_objectives(torch, Dc4, Xc4, G4, LAM)
+    o_x = lasso_objectives(torch, Dc4, Xc4, G4x, LAM)
     gap = (o_k - o_x).abs()
     n_out = int((gap > 1e-5 + 1e-4 * o_x.abs()).sum())
     check(n_out <= N4 // 1000 and bool((gap <= 1e-3 * o_x.abs()).all()),
           f"lasso objective against the plain path: {n_out} lanes beyond "
           f"rtol 1e-4, max gap {float(gap.max())}")
-    Gd = G4.double()
-    grad = 2.0 * (Dc4.double().T @ (Dc4.double() @ Gd - Xc4.double()))
-    act = Gd.abs() > 1e-10
-    viol_act = float((grad + LAM * torch.sign(Gd)).abs()[act].max())
-    viol_inact = float(grad.abs()[~act].max())
+    viol_act, viol_inact = lasso_kkt(torch, Dc4, Xc4, G4, LAM)
     check(viol_act < 1e-3 and viol_inact <= LAM + 1e-3,
           f"lasso KKT: active {viol_act}, inactive {viol_inact}")
     print(f"lasso encoder N={N4}: objective mean {float(o_k.mean()):.6f}, "
@@ -1586,8 +2051,8 @@ def main():
           f"{float((gap / o_x.clamp_min(1e-12)).max()):.3g}; {n_out} lanes "
           f"beyond rtol 1e-4, atol 1e-5); KKT active {viol_act:.3g}, "
           f"inactive max {viol_inact:.6f} (lam {LAM}); mean nnz "
-          f"{float(act.sum(dim=0).double().mean()):.3f}")
-    del G4x, Gd, grad
+          f"{float((G4.abs() > 1e-10).sum(dim=0).double().mean()):.3f}")
+    del G4x
 
     # path (e): the residual-form OMP with the fused selection, one K7
     # launch per step
@@ -1839,9 +2304,12 @@ def main():
     # --- 8. the dictionary-learning paths
     (launches_i, launches_j, launches_k), ksvd_out = ksvd_paths(
         torch, lt, dev, img, noisy, img_d)
+    # --- 9. online dictionary learning and the classifiers
+    (launches_l, launches_m, launches_n), learning_out = learning_paths(
+        torch, lt, dev)
     paths = (launches, launches_g, launches_b, launches_d, launches_e,
              launches_f, launches_inp, launches_h, launches_i, launches_j,
-             launches_k)
+             launches_k, launches_l, launches_m, launches_n)
     for name in launches:
         total = sum(counts[name] for counts in paths)
         check(total > 0, f"kernel {name} not launched on any main path")
@@ -1853,7 +2321,8 @@ def main():
          "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
          "replaces": "lyssandra_tpu/ops/pallas_omp.py:79",
          "launches": launches["omp_fused_t"] + launches_b["omp_fused_t"]
-         + launches_i["omp_fused_t"] + launches_j["omp_fused_t"],
+         + launches_i["omp_fused_t"] + launches_j["omp_fused_t"]
+         + launches_n["omp_fused_t"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -1885,7 +2354,8 @@ def main():
         {"name": "fs_cold", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/fs_cold.cu",
          "replaces": "lyssandra_tpu/ops/pallas_fs.py:53",
-         "launches": launches_d["fs_cold"], "max_abs_err": k6_err,
+         "launches": launches_d["fs_cold"] + launches_m["fs_cold"],
+         "max_abs_err": k6_err,
          "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
          "bound_by": k6_bound[1], "library_ms": None},
         {"name": "select_abs_argmax", "route": "cuda",
@@ -1923,6 +2393,7 @@ def main():
               f"non-finite measurement for {k['name']}")
         check(k["launches"] > 0, f"{k['name']} launched no time on its path")
     print(json.dumps(ksvd_out))
+    print(json.dumps(learning_out))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,10 @@ Ported so far: the patch ops, the DCT dictionary, the greedy solvers
 (OMP, Batch-OMP, group OMP, NN-OMP, masked OMP, thresholding),
 feature-sign lasso coding, FISTA and LLC, the ``SparseEncoder`` front end
 with those routes, the error-constrained and the adaptive denoiser,
-inpainting, K-SVD dictionary learning (``KSVDLearner``) and the
-experiment ``Workspace``.
+inpainting, K-SVD and online dictionary learning (``KSVDLearner``,
+``OnlineDictionaryLearner``), the classifiers (``LCKSVD``,
+``SRCClassifier``, ``LinearClassifier``, ``LinearSVM``) and the experiment
+``Workspace``.
 
 Entry points run on the GPU unless the caller asks for the CPU, by
 ``device="cpu"`` or by handing over CPU tensors (``_device.py``).
@@ -34,7 +36,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from lyssandra_tpu_torch.config import DenoiseConfig, KSVDConfig  # noqa: E402
+from lyssandra_tpu_torch.config import (  # noqa: E402
+    DenoiseConfig,
+    KSVDConfig,
+    LCKSVDConfig,
+    OnlineDLConfig,
+)
 from lyssandra_tpu_torch.ops import (  # noqa: E402
     contrast_normalize,
     dct_dictionary,
@@ -50,6 +57,7 @@ from lyssandra_tpu_torch.solvers import (  # noqa: E402
     SparseEncoder,
     batch_omp,
     feature_sign,
+    feature_sign_scan,
     fista,
     group_omp,
     lasso,
@@ -59,7 +67,19 @@ from lyssandra_tpu_torch.solvers import (  # noqa: E402
     sparse_encoder,
     threshold_code,
 )
-from lyssandra_tpu_torch.dict_learning import KSVDLearner, ksvd  # noqa: E402
+from lyssandra_tpu_torch.dict_learning import (  # noqa: E402
+    KSVDLearner,
+    OnlineDictionaryLearner,
+    OnlineDLState,
+    ksvd,
+    online_dl_step,
+)
+from lyssandra_tpu_torch.classify import (  # noqa: E402
+    LCKSVD,
+    LinearClassifier,
+    LinearSVM,
+    SRCClassifier,
+)
 from lyssandra_tpu_torch.apps import Denoiser, denoise, psnr  # noqa: E402
 from lyssandra_tpu_torch.utils import Workspace  # noqa: E402
 
@@ -68,6 +88,14 @@ __all__ = [
     "Denoiser",
     "KSVDConfig",
     "KSVDLearner",
+    "LCKSVD",
+    "LCKSVDConfig",
+    "LinearClassifier",
+    "LinearSVM",
+    "OnlineDLConfig",
+    "OnlineDLState",
+    "OnlineDictionaryLearner",
+    "SRCClassifier",
     "SparseEncoder",
     "Workspace",
     "batch_omp",
@@ -76,6 +104,7 @@ __all__ = [
     "denoise",
     "extract_patches",
     "feature_sign",
+    "feature_sign_scan",
     "fista",
     "group_omp",
     "init_dictionary",
@@ -86,6 +115,7 @@ __all__ = [
     "nn_omp",
     "normalize_atoms",
     "omp",
+    "online_dl_step",
     "psnr",
     "reconstruct_from_patches",
     "remove_dc",

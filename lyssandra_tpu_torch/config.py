@@ -34,6 +34,39 @@ class KSVDConfig:
 
 
 @dataclass(frozen=True)
+class OnlineDLConfig:
+    K: int = 1024
+    lam: float = 0.15
+    batch_size: int = 4096       # lanes per coding call
+    n_sweeps: int = 1
+    beta: float = 1.0            # forgetting factor on sufficient statistics
+    chunk_batches: int = 8       # minibatches per chunk (one metrics record)
+    fs_max_active: int = 64      # feature-sign active-set capacity
+    fs_max_iter: int = 60        # feature-sign outer iterations (in-loop)
+    fs_max_inner: int = 6        # refinement budget
+    fs_warm_start: int = 0       # OMP-seed atoms for the in-loop coder
+    # unrolled growing-width cold start for the in-loop coder; None -> 0
+    # (see OnlineDictionaryLearner._resolve_cold_unroll)
+    fs_cold_unroll: int | None = None
+    # the minibatch is coded as code_blocks sub-blocks one after another:
+    # each feature-sign loop ends when its own slowest lane does.  The codes
+    # are the same either way; the dictionary update sees the full minibatch
+    code_blocks: int = 4
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class LCKSVDConfig:
+    K: int = 512
+    T: int = 8
+    n_iter: int = 10
+    # weights for unit-norm inputs (their square roots enter the stack)
+    alpha: float = 0.25          # label-consistency weight
+    beta: float = 0.5            # classification weight
+    seed: int = 0
+
+
+@dataclass(frozen=True)
 class DenoiseConfig:
     patch: int = 8
     sigma: float = 25.0

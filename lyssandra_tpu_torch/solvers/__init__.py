@@ -10,6 +10,7 @@ from lyssandra_tpu_torch.solvers.greedy import (
 from lyssandra_tpu_torch.solvers.lasso import (
     FeatureSignResult,
     feature_sign,
+    feature_sign_scan,
     fista,
     lasso,
 )
@@ -17,5 +18,6 @@ from lyssandra_tpu_torch.solvers.llc import llc
 from lyssandra_tpu_torch.solvers.encoder import SparseEncoder, sparse_encoder
 
 __all__ = ["FeatureSignResult", "GreedyResult", "SparseEncoder", "batch_omp",
-           "feature_sign", "fista", "group_omp", "lasso", "llc",
-           "masked_omp", "nn_omp", "omp", "sparse_encoder", "threshold_code"]
+           "feature_sign", "feature_sign_scan", "fista", "group_omp",
+           "lasso", "llc", "masked_omp", "nn_omp", "omp", "sparse_encoder",
+           "threshold_code"]

@@ -684,6 +684,66 @@ def feature_sign(
 lasso = feature_sign
 
 
+def feature_sign_scan(
+    D, X, lam: float,
+    *, max_active: int = 64, max_iter: int = 60, max_inner: int = 6,
+    warm_start: int = 0, warm_seed: str = "omp", max_cg: int = 32,
+    n_activate: int = 1, cold_unroll: int = 0, n_refine: int = 2,
+    device=None,
+):
+    """Feature-sign in one loop of up to ``max_iter`` outer iterations,
+    then a FISTA-100 polish from the current codes, kept lane by lane where
+    its objective is lower, for lanes not done or overflowed.  Returns
+    Gamma (K, N).  The online learner codes every minibatch with it.
+
+    The seeds: ``cold_unroll > 0`` the plain unrolled cold start
+    (``_fs_unrolled_state``, never the kernel); else ``warm_start > 0``
+    with ``warm_seed`` "omp" (the plain residual-form OMP at T=warm_start)
+    or "fista" (the FISTA iterate); else the empty active set.  The
+    reference's loop decides on the device; here each exit check is a host
+    sync (``host_syncs``), and one more decides whether to polish."""
+    if max_iter < 1:
+        raise ValueError(f"max_iter must be >= 1, got {max_iter}")
+    if warm_seed not in ("omp", "fista"):
+        raise ValueError(f"warm_seed must be 'omp' or 'fista': {warm_seed!r}")
+    device = resolve_device(device, D, X)
+    D = _as_f32(D, device)
+    X = _as_f32(X, device)
+    lam = float(lam)
+    Dt, Xt = D.T, X.T
+    A0 = X.T @ D
+    if cold_unroll and cold_unroll > 0:
+        state = _fs_unrolled_state(
+            Dt, Xt, A0, lam, t_unroll=min(int(cold_unroll), max_active),
+            n_refine=int(n_refine), max_active=max_active)
+    elif warm_start and warm_start > 0:
+        if warm_seed == "omp":
+            from lyssandra_tpu_torch.solvers.greedy import _omp_impl
+
+            G0t = _omp_impl(D, X, 0.0, T=int(warm_start),
+                            eps_mode=False).dense(D.shape[1]).T
+        else:
+            G0t = _fs_fista_iterate(D, Xt, A0, lam, n_warm=int(warm_start))
+        state = _fs_warm_state(G0t, Dt, Xt, A0, lam, max_active=max_active)
+    else:
+        state = _fs_init(A0, lam, max_active)
+    _, res, _ = _fs_loop(Dt, Xt, A0, lam, state, max_active=max_active,
+                         max_iter=max_iter, max_inner=max_inner,
+                         max_cg=max_cg, n_activate=n_activate)
+    bad = ~res.done | res.overflow
+    G = res.Gamma
+    if not _host_bool(bad.any()):
+        return G
+    Gf = _fista_body(D, X, A0.T, lam, G, n_iter=100)
+
+    def obj(Gm):
+        R = X - D @ Gm
+        return (R * R).sum(dim=0) + lam * Gm.abs().sum(dim=0)
+
+    take_f = bad & (obj(Gf) < obj(G))
+    return torch.where(take_f[None, :], Gf, G)
+
+
 def _fs_polish(D, X, lam, res: FeatureSignResult) -> FeatureSignResult:
     """FISTA-500 polish of lanes that are not done or overflowed, kept
     where its objective is lower.  The reference decides on the device

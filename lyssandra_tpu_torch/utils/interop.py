@@ -2,7 +2,9 @@
 
 The "weights" of this system are a dictionary D and a config.  A
 dictionary learned by ``lyssandra_tpu`` (for example by its K-SVD), saved
-or handed over as a NumPy array, denoises and codes identically here.
+or handed over as a NumPy array, denoises and codes identically here.  The
+learned state of the online learner and of the classifiers (``LCKSVD``,
+``SRCClassifier``) comes across the same way, as NumPy arrays.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ import torch
 
 from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.apps.denoise import Denoiser
-from lyssandra_tpu_torch.config import DenoiseConfig
+from lyssandra_tpu_torch.classify import LCKSVD, SRCClassifier
+from lyssandra_tpu_torch.config import DenoiseConfig, LCKSVDConfig
+from lyssandra_tpu_torch.dict_learning.online import OnlineDLState
 from lyssandra_tpu_torch.solvers.encoder import SparseEncoder
 
 
@@ -65,3 +69,46 @@ def encoder_from_reference(algorithm: str, params: dict | None = None, *,
     return SparseEncoder(
         algorithm, {k: plain(v) for k, v in (params or {}).items()},
         block=block, check_atoms=check_atoms, device=device)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(
+        device)
+
+
+def online_state_from_reference(D, A, B, step=0,
+                                device=None) -> OnlineDLState:
+    """An online-learning state from the reference's ``OnlineDLState``
+    fields (D (p, K), A (K, K), B (p, K), step) as NumPy arrays, on
+    ``device`` (default: the GPU); set it as a learner's ``state``.  The
+    atoms of D have norm at most 1, not 1, so they are not checked."""
+    device = resolve_device(device)
+    return OnlineDLState(_tensor(D, device),
+                         _tensor(A, device), _tensor(B, device),
+                         torch.tensor(int(np.asarray(step)),
+                                      dtype=torch.int32))
+
+
+def lcksvd_from_reference(D, A, W, C: int, cfg_dict: dict | None = None, *,
+                          predict_T: int | None = None,
+                          device=None) -> LCKSVD:
+    """A fitted LCKSVD from a reference one's ``D_``, ``A_``, ``W_`` and
+    ``C_`` (and the fields of its ``LCKSVDConfig``, ``dataclasses.asdict``
+    of it), on ``device`` (default: the GPU); it predicts as fitted."""
+    clf = LCKSVD(LCKSVDConfig(**(cfg_dict or {})), predict_T=predict_T,
+                 device=device)
+    device = resolve_device(device)
+    clf.D_ = dictionary_from_numpy(D, device)
+    clf.A_ = _tensor(A, device)
+    clf.W_ = _tensor(W, device)
+    clf.C_ = int(C)
+    return clf
+
+
+def src_from_reference(D, y, T: int = 10, *, normalize: bool = True,
+                       device=None) -> SRCClassifier:
+    """A fitted SRCClassifier from a reference one's ``D_`` (the already
+    normalized training samples) and ``y_``, on ``device`` (default: the
+    GPU)."""
+    clf = SRCClassifier(T, normalize=normalize, device=device)
+    return clf._set_dictionary(_tensor(D, resolve_device(device)), y)

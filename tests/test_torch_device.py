@@ -10,13 +10,21 @@ import torch
 import lyssandra_tpu_torch as lt
 from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.apps import denoise_adaptive, inpaint
+from lyssandra_tpu_torch.classify import one_hot
+from lyssandra_tpu_torch.classify.lc_ksvd import build_label_consistency
 from lyssandra_tpu_torch.solvers import masked_omp
 from lyssandra_tpu_torch.utils.interop import (
     denoiser_from_reference,
     dictionary_from_numpy,
+    lcksvd_from_reference,
+    online_state_from_reference,
+    src_from_reference,
 )
 
 torch.set_num_threads(1)
+
+
+LABELS = np.arange(12) % 3
 
 
 def _inputs():
@@ -62,6 +70,30 @@ ENTRY_POINTS = {
     "denoiser_from_reference": lambda D, X, **kw: denoiser_from_reference(
         np.asarray(lt.dct_dictionary(4, 16, device="cpu")), {"patch": 4},
         **kw),
+    "feature_sign_scan": lambda D, X, **kw: lt.feature_sign_scan(D, X, 0.2,
+                                                                 **kw),
+    "online_fit": lambda D, X, **kw: lt.OnlineDictionaryLearner(
+        lt.OnlineDLConfig(K=8, batch_size=12, chunk_batches=1), **kw).fit(
+        X).D_,
+    "online_partial_fit": lambda D, X, **kw: lt.OnlineDictionaryLearner(
+        lt.OnlineDLConfig(K=8), **kw).partial_fit(X).D_,
+    "online_state_from_reference": lambda D, X, **kw:
+        online_state_from_reference(D, np.eye(36), X[:, :1] @ np.ones(
+            (1, 36)), **kw),
+    "one_hot": lambda D, X, **kw: one_hot(LABELS, 3, **kw),
+    "build_label_consistency": lambda D, X, **kw: build_label_consistency(
+        LABELS, 6, 3, **kw),
+    "linear_classifier": lambda D, X, **kw: lt.LinearClassifier(**kw).fit(
+        X, LABELS).W_,
+    "linear_svm": lambda D, X, **kw: lt.LinearSVM(n_iter=3, **kw).fit(
+        X, LABELS).W_,
+    "lcksvd": lambda D, X, **kw: lt.LCKSVD(
+        lt.LCKSVDConfig(K=6, T=2, n_iter=2), **kw).fit(X, LABELS).D_,
+    "lcksvd_from_reference": lambda D, X, **kw: lcksvd_from_reference(
+        D, np.eye(36), np.ones((3, 36)), 3, **kw).D_,
+    "src": lambda D, X, **kw: lt.SRCClassifier(T=2, **kw).fit(X, LABELS).D_,
+    "src_from_reference": lambda D, X, **kw: src_from_reference(
+        X, LABELS, 2, **kw).D_,
 }
 
 

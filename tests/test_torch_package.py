@@ -15,6 +15,8 @@ import torch
 import lyssandra_tpu_torch as lt
 from lyssandra_tpu.config import DenoiseConfig as JDenoiseConfig
 from lyssandra_tpu.config import KSVDConfig as JKSVDConfig
+from lyssandra_tpu.config import LCKSVDConfig as JLCKSVDConfig
+from lyssandra_tpu.config import OnlineDLConfig as JOnlineDLConfig
 from lyssandra_tpu.utils.datasets import standard_test_image as j_standard
 from lyssandra_tpu.utils.datasets import synthetic_image as j_synthetic
 from lyssandra_tpu_torch.utils.datasets import (
@@ -39,6 +41,9 @@ def test_import_leaves_jax_out():
             "lyssandra_tpu_torch.solvers.lasso, lyssandra_tpu_torch.ops."
             "cuda_fs, lyssandra_tpu_torch.dict_learning.ksvd, "
             "lyssandra_tpu_torch.utils.workspace, "
+            "lyssandra_tpu_torch.dict_learning.online, "
+            "lyssandra_tpu_torch.classify.lc_ksvd, "
+            "lyssandra_tpu_torch.classify.src, "
             "lyssandra_tpu_torch.apps.denoise; bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lyssandra_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -77,12 +82,17 @@ def test_ksvd_config_matches_reference():
     assert ours == ref
 
 
+@pytest.mark.parametrize("name", ["OnlineDLConfig", "LCKSVDConfig"])
+def test_learning_configs_match_reference(name):
+    ref = {"OnlineDLConfig": JOnlineDLConfig,
+           "LCKSVDConfig": JLCKSVDConfig}[name]
+    ours = [(f.name, f.default) for f in dataclasses.fields(getattr(lt, name))]
+    assert ours == [(f.name, f.default) for f in dataclasses.fields(ref)]
+
+
 # top-level names of the reference that the port does not have yet, each
 # with the ROADMAP item that ports it
 NOT_PORTED = {
-    "OnlineDLConfig": "A3", "OnlineDictionaryLearner": "A3",
-    "LCKSVD": "A4", "LCKSVDConfig": "A4", "LinearClassifier": "A4",
-    "LinearSVM": "A4", "SRCClassifier": "A4",
     "LarsPath": "A5", "lars": "A5", "lars_path": "A5", "lasso_lars": "A5",
     "FeatureExtractor": "A6", "WhitenConfig": "A6", "Whitener": "A6",
     "ZCAWhitener": "A6",
@@ -107,7 +117,10 @@ def test_top_level_names_match_reference():
     assert set(NOT_PORTED) <= ref
     for name in ("contrast_normalize", "normalize_atoms",
                  "reconstruct_from_patches", "KSVDConfig", "KSVDLearner",
-                 "ksvd", "init_dictionary", "Workspace"):
+                 "ksvd", "init_dictionary", "Workspace", "OnlineDLConfig",
+                 "OnlineDictionaryLearner", "online_dl_step",
+                 "feature_sign_scan", "LCKSVD", "LCKSVDConfig",
+                 "SRCClassifier", "LinearSVM", "LinearClassifier"):
         assert name in lt.__all__
 
 

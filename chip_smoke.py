@@ -182,8 +182,38 @@ Phases, in order; any failure raises and exits non-zero:
      picks agree; both accuracies above 0.8 and within 0.02 of the
      same pipeline with K1 replaced by its plain version;
      every kernel must have launched on one of the paths;
+ 10. after phase 9: (o) LARS at benchmarks/ab_lars_unroll.py's shape (p=64,
+     K=1024, 16,384 unit-norm signals from seed 0, encoder blocks of 2,048,
+     lam=0.15) in three regimes, dense random signals (timed on
+     LARS_TIME_BLOCKS blocks, printed), T-mode (n_nonzero_coefs=8) and
+     planted 5-sparse + 0.02 noise: cold_unroll 0 and 12 timed in turns
+     (CUDA events), patches/s, mean nnz, host syncs a block (the solver's
+     counter; torch's sync debug mode on one block); on one block the
+     objectives against the port's own CPU run (rtol 1e-4, atol 1e-5 on
+     >= 99.9% of lanes, rtol 1e-3 on all); in lambda mode the KKT conditions on every lane
+     (tests/test_lasso.py's LARS tolerance, 5e-3) and the objectives of one
+     block within rtol 1e-3 of feature_sign's; in T-mode <= 8 nonzeros
+     and tests/test_properties.py's knot rule; lars_path on 2,048 lanes:
+     every kept knot within 5e-3 of KKT at its lambda, n_knots equal to
+     the CPU run's on >= 99% of lanes; (p) config 6
+     (benchmarks/run.py:374-430: 4 classes of 64x64 synthetic images, 240
+     for training and 120 for testing; Whitener on 20,000 patches; K-SVD
+     K=256, T=6, 8 iterations; FeatureExtractor with stride 4, levels
+     (1, 2), dc+norm+whiten; LinearClassifier lam=1e-2): seconds by part,
+     warm transform images/s, K1 and product launches, K1 lane by lane on
+     one transform block against its plain version in float32 and float64,
+     accuracy >= 0.90 and within 0.025 of the same pipeline with the plain
+     K1; (q) K3's whitening epilogue fed the fitted whitener on the 512^2
+     image (DC removal, and DC removal with normalization) against its
+     plain version and Whitener.transform of the plainly extracted patches
+     (1e-4 of the largest entry), timed one call at a time and in a CUDA
+     graph; (r) the experiment runner on JSON specs in a temporary
+     workspace: encode (bomp, 50,000 patches, K1), encode with LARS (4,096
+     patches), the sigma=25 denoise of the 512^2 barbara stand-in (K3, K2)
+     and K-SVD at config 2 cut to 2 iterations, each within 1e-5 of the
+     direct call, the workspace's files read back;
 then one JSON line of the results of paths (i)-(k), one of paths (l)-(n),
-one JSON line of
+one of paths (o)-(r), one JSON line of
 per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
 of their type, counted from this run's data for the cheapest form of the
@@ -229,6 +259,21 @@ ODL_N, ODL_HOLD, ODL_BS, ODL_CHUNKS, ODL_PARTS = 100000, 2048, 4096, 3, 2
 # classes, 1,257 for training and 540 for testing; LC-KSVD at K=500, T=8,
 # 20 iterations; SRC at T=10
 DIGITS_N, LC_K, LC_ITERS, SRC_T = 1797, 500, 20, 10
+# path (o), LARS at benchmarks/ab_lars_unroll.py's shape (p=64, K=1024,
+# 16,384 signals in encoder blocks of 2,048, lam=LAM): the blocks timed
+# per regime and the cold_unroll settings timed in turns
+LARS_N, LARS_UNROLLS = 16384, (0, 12)
+LARS_TIME_BLOCKS = {"dense": 2, "tmode": 8, "sparse": 8}
+# config 6 (benchmarks/run.py:359-430): 4 classes of 64x64 synthetic
+# images, 60 + 30 a class; whitener on 20,000 patches; K-SVD K=256, T=6,
+# 8 iterations
+C6_KINDS = ("smooth", "texture", "edges", "mix")
+C6_SIZE, C6_TRAIN, C6_TEST, C6_WHITEN_N = 64, 60, 30, 20000
+C6_K, C6_T, C6_ITERS = 256, 6, 8
+# path (r), the runner: encode 50,000 patches (bomp) and 4,096 (LARS at
+# lam=50 on pixel-scale patches), the sigma=25 denoise, K-SVD at config 2
+# cut to RUN_KSVD_ITERS iterations
+RUN_ENC_N, RUN_LARS_N, RUN_LARS_LAM, RUN_KSVD_ITERS = 50000, 4096, 50.0, 2
 # published H100 SXM peaks (NVIDIA's data sheet), for the bounds
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
@@ -1246,6 +1291,517 @@ def learning_paths(torch, lt, dev):
     launches_n = {k: kernel["launches_fit"][k] + kernel["launches_predict"][k]
                   + kernel["launches_src"][k] for k in kernel["launches_fit"]}
     return (launches_l, launches_m, launches_n), out
+
+
+def lars_problem():
+    """benchmarks/ab_lars_unroll.py's data (same shapes, seed and draw
+    order): a unit-norm Gaussian D (p=64, K=1024), LARS_N unit-norm
+    Gaussian signals (the dense regime) and LARS_N planted 5-sparse signals
+    plus 0.02 noise, unit-normalized (the sparse regime)."""
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((P, K))
+    D /= np.linalg.norm(D, axis=0)
+    X = rng.standard_normal((P, LARS_N))
+    X /= np.linalg.norm(X, axis=0)
+    idx = rng.integers(0, K, (LARS_N, 5))
+    coef = rng.standard_normal((LARS_N, 5))
+    Xs = np.zeros((P, LARS_N), np.float32)
+    for j in range(5):
+        Xs += (D[:, idx[:, j]] * coef[:, j]).astype(np.float32)
+    Xs += 0.02 * rng.standard_normal((P, LARS_N)).astype(np.float32)
+    Xs /= np.linalg.norm(Xs, axis=0)
+    return D.astype(np.float32), X.astype(np.float32), Xs
+
+
+def knot_kkt(torch, D, X, G):
+    """tests/test_properties.py's T-mode rule: a T-mode LARS lane stops at
+    a knot, its active atoms' |grad| on a common boundary bnd (their
+    largest).  Returns the largest deviation from it over the lanes,
+    relative to max(bnd, 1), and the share of lanes with an inactive atom
+    above bnd (1 + 1e-3) + 1e-3, a late join after a heal (float64)."""
+    Gd = G.double()
+    grad = (2.0 * (D.double().T @ (D.double() @ Gd - X.double()))).abs()
+    act = Gd.abs() > 1e-12
+    bnd = torch.where(act, grad, 0.0).amax(dim=0)
+    dev = torch.where(act, (grad - bnd).abs(), 0.0).amax(dim=0)
+    over = torch.where(act, 0.0, grad).amax(dim=0) > bnd * (1 + 1e-3) + 1e-3
+    return (float((dev / bnd.clamp_min(1.0)).max()),
+            float(over[act.any(dim=0)].double().mean()))
+
+
+def path_kkt(torch, D, X, path):
+    """The kept knots of a LarsPath against the lasso KKT conditions at
+    their own penalty (tests/test_lasso.py's per-knot check): the share of
+    kept knots whose active |grad| is within 5e-3 of the knot's lambda and
+    whose inactive |grad| is at most lambda + 5e-3, and the largest
+    violation."""
+    K = D.shape[1]
+    Dd, Xd = D.double(), X.double()
+    G, A0 = Dd.T @ Dd, Dd.T @ Xd
+    ok = kept = 0
+    worst = 0.0
+    for s in range(path.lambdas.shape[0]):
+        keep = path.keep[s]
+        if not bool(keep.any()):
+            continue
+        g = torch.zeros(X.shape[1], K, dtype=torch.float64, device=X.device)
+        g.scatter_add_(1, path.idx[s].long(), torch.where(
+            path.mask[s], path.coefs[s], 0.0).double())
+        g = g.T
+        gr = 2.0 * (G @ g - A0)
+        lam = path.lambdas[s].double()[None, :]
+        act = g.abs() > 1e-10
+        viol = torch.where(act, (gr.abs() - lam).abs(),
+                           (gr.abs() - lam).clamp_min(0.0)).amax(dim=0)
+        kept += int(keep.sum())
+        ok += int(((viol <= 5e-3) & keep).sum())
+        worst = max(worst, float(viol[keep].max()))
+    return ok / max(kept, 1), worst, kept
+
+
+def lars_paths(torch, lt, dev):
+    """Path (o): the LARS-lasso homotopy at benchmarks/ab_lars_unroll.py's
+    shape in its three regimes, and lars_path.  Returns (the launches of
+    the path, one JSON-able dict of results)."""
+    from lyssandra_tpu_torch.solvers.lasso import host_syncs
+
+    D, X, Xs = lars_problem()
+    cpu = torch.device("cpu")
+    Dd = torch.as_tensor(D, device=dev)
+    block = lt.SparseEncoder("lars").block
+    regimes = (("dense", X, {"lam": LAM}),
+               ("tmode", X, {"n_nonzero_coefs": 8}),
+               ("sparse", Xs, {"lam": LAM}))
+    out = {}
+    launches = None
+    for name, Xr, params in regimes:
+        lam = params.get("lam", 0.0)
+        n_time = LARS_TIME_BLOCKS[name] * block
+        if n_time < LARS_N:
+            print(f"path (o) {name}: timing cut to {n_time} of the "
+                  f"{LARS_N} signals ({n_time // block} blocks of {block})")
+        Xt = torch.as_tensor(Xr[:, :n_time], device=dev)
+        res = {u: {"ms": [], "syncs": []} for u in LARS_UNROLLS}
+        codes = {}
+        lt.reset_launch_counts()
+        for u in LARS_UNROLLS + LARS_UNROLLS[::-1]:       # in turns
+            enc = lt.SparseEncoder("lars", {**params, "cold_unroll": u})
+            torch.cuda.synchronize()
+            s0 = host_syncs()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            G = enc.encode(Xt, Dd)
+            ev[1].record()
+            ev[1].synchronize()
+            res[u]["ms"].append(ev[0].elapsed_time(ev[1]))
+            res[u]["syncs"].append((host_syncs() - s0) / (n_time // block))
+            codes[u] = G
+        launches_r = lt.launch_counts()
+        launches = launches_r if launches is None else {
+            k: launches[k] + launches_r[k] for k in launches}
+        # torch's sync debug mode on one block, cold_unroll 12
+        Xb = Xt[:, :block]
+        _, dbg_syncs = count_syncs(torch, lambda: lt.lars(
+            Dd, Xb, cold_unroll=LARS_UNROLLS[-1], **params))
+        G = codes[LARS_UNROLLS[-1]]
+        nnz = (G.abs() > 1e-8).sum(dim=0)
+        # one block against the port's own CPU run (cold_unroll None = 0
+        # there)
+        Xh = torch.as_tensor(Xr[:, :block])
+        t0 = time.perf_counter()
+        Gc = lt.lars(torch.as_tensor(D), Xh, **params).to(dev)
+        cpu_s = time.perf_counter() - t0
+        o_c = lasso_objectives(torch, Dd, Xh.to(dev), Gc, lam)
+        held = {}
+        for u in LARS_UNROLLS:
+            o_g = lasso_objectives(torch, Dd, Xh.to(dev),
+                                   codes[u][:, :block], lam)
+            gap = (o_g - o_c).abs()
+            n_out = int((gap > 1e-5 + 1e-4 * o_c.abs()).sum())
+            rel = float((gap / o_c.abs().clamp_min(1e-12)).max())
+            held[u] = {"lanes_beyond_rtol_1e-4": n_out, "max_rel_gap": rel}
+            check(n_out <= block // 1000 and rel <= 1e-3,
+                  f"LARS {name} cold_unroll={u} against the CPU run: "
+                  f"{n_out} lanes beyond rtol 1e-4, max relative gap {rel}")
+        r = {"n_timed": n_time, "block": block, "params": params,
+             "ms_per_call": {u: v["ms"] for u, v in res.items()},
+             "patches_per_s": {u: n_time / statistics.median(v["ms"]) * 1e3
+                               for u, v in res.items()},
+             "host_syncs_per_block": {u: v["syncs"] for u, v in res.items()},
+             "debug_mode_syncs_one_block": dbg_syncs,
+             "mean_nnz": float(nnz.double().mean()),
+             "cpu_hold_lanes": block, "cpu_seconds": cpu_s,
+             "cpu_hold": held}
+        if name == "tmode":
+            check(int(nnz.max()) <= 8, f"LARS T-mode: {int(nnz.max())} > 8 "
+                  f"nonzeros on a lane")
+            r["knot_kkt"], r["overdue_share"] = knot_kkt(torch, Dd, Xt, G)
+            check(r["knot_kkt"] < 5e-3 and r["overdue_share"] <= 0.25,
+                  f"LARS T-mode knot KKT {r['knot_kkt']}, lanes with a late "
+                  f"join {r['overdue_share']}")
+        else:
+            va, vi = lasso_kkt(torch, Dd, Xt, G, lam)
+            r["kkt"] = [va, vi]
+            check(va < 5e-3 and vi <= lam + 5e-3,
+                  f"LARS {name} KKT after polish: active {va}, inactive {vi}")
+            # the same optimum as feature-sign on one block
+            Gf = lt.feature_sign(Dd, Xb, lam)
+            o_f = lasso_objectives(torch, Dd, Xb, Gf, lam)
+            o_l = lasso_objectives(torch, Dd, Xb, G[:, :block], lam)
+            r["feature_sign_max_rel_gap"] = float(
+                ((o_l - o_f).abs() / o_f.clamp_min(1e-12)).max())
+            check(r["feature_sign_max_rel_gap"] <= 1e-3,
+                  f"LARS {name} against feature_sign: "
+                  f"{r['feature_sign_max_rel_gap']}")
+        out[name] = r
+        print(f"LARS {name} ({params}) p={P} K={K} N={n_time}, blocks of "
+              f"{block}: " + "; ".join(
+                  f"cold_unroll={u} {statistics.median(v['ms']) / 1e3:.4f} s "
+                  f"a call ({', '.join(f'{m / 1e3:.4f}' for m in v['ms'])}) "
+                  f"= {r['patches_per_s'][u]:.1f} patches/s, host syncs a "
+                  f"block {v['syncs']}" for u, v in res.items())
+              + f"; sync debug mode on one block (cold_unroll="
+              f"{LARS_UNROLLS[-1]}) {dbg_syncs}; mean nnz {r['mean_nnz']:.3f}"
+              f"; against the CPU run on {block} lanes ({cpu_s:.2f} s): "
+              + ", ".join(f"cold_unroll={u} {h['lanes_beyond_rtol_1e-4']} "
+                          f"lanes beyond rtol 1e-4, max rel gap "
+                          f"{h['max_rel_gap']:.3g}" for u, h in held.items())
+              + (f"; knot KKT {r['knot_kkt']:.3g}, share of lanes with a "
+                 f"late join {r['overdue_share']:.6f}" if name == "tmode" else
+                 f"; KKT active {r['kkt'][0]:.3g}, inactive max "
+                 f"{r['kkt'][1]:.6f}; against feature_sign max rel gap "
+                 f"{r['feature_sign_max_rel_gap']:.3g}"))
+        del codes, G, Xt
+
+    # lars_path on one block of the sparse regime, and on the CPU
+    Xp = torch.as_tensor(Xs[:, :block], device=dev)
+    lt.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    path = lt.lars_path(Dd, Xp, LAM)
+    ev[1].record()
+    ev[1].synchronize()
+    launches_p = lt.launch_counts()
+    launches = {k: launches[k] + launches_p[k] for k in launches}
+    path_ms = ev[0].elapsed_time(ev[1])
+    t0 = time.perf_counter()
+    path_c = lt.lars_path(torch.as_tensor(D), Xp.to(cpu), LAM)
+    cpu_s = time.perf_counter() - t0
+    same = float((path.n_knots.cpu() == path_c.n_knots).double().mean())
+    share, worst, kept = path_kkt(torch, Dd, Xp, path)
+    print(f"lars_path sparse regime, {block} lanes, lam {LAM}, "
+          f"{path.lambdas.shape[0] - 1} steps: {path_ms / 1e3:.4f} s (CPU "
+          f"{cpu_s:.2f} s); kept knots {kept}, mean n_knots "
+          f"{float(path.n_knots.double().mean()):.3f}; n_knots equal to the "
+          f"CPU run's on {same:.6f} of lanes; KKT at their lambda within "
+          f"5e-3 on {share:.6f} of kept knots, worst {worst:.3g}")
+    check(same >= 0.99, f"lars_path n_knots against the CPU run: {same}")
+    check(share == 1.0, f"lars_path kept knots off KKT: share {share}, "
+          f"worst {worst}")
+    out["lars_path"] = {"lanes": block, "ms": path_ms, "cpu_seconds": cpu_s,
+                        "kept_knots": kept, "n_knots_equal_cpu": same,
+                        "kkt_share": share, "kkt_worst": worst}
+    out["launches"] = launches
+    return launches, out
+
+
+def config6_problem():
+    """Config 6's data (benchmarks/run.py:374-394): 4 classes of
+    synthetic_image at 64x64, C6_TRAIN training and C6_TEST test images a
+    class, plus noise 4.0 drawn from default_rng(11) in the benchmark's
+    order.  Returns (train images, ytr, test images, yte)."""
+    from lyssandra_tpu_torch.utils.datasets import synthetic_image
+
+    rng = np.random.default_rng(11)
+
+    def make(cls, n, seed0):
+        return [synthetic_image(C6_KINDS[cls], C6_SIZE, seed=seed0 + 7 * i)
+                + 4.0 * rng.standard_normal((C6_SIZE, C6_SIZE))
+                for i in range(n)]
+
+    train = [(im, c) for c in range(4) for im in make(c, C6_TRAIN, 1000 + c)]
+    test = [(im, c) for c in range(4) for im in make(c, C6_TEST, 9000 + c)]
+    return (np.stack([im for im, _ in train]).astype(np.float32),
+            np.array([c for _, c in train]),
+            np.stack([im for im, _ in test]).astype(np.float32),
+            np.array([c for _, c in test]))
+
+
+def feature_paths(torch, lt, dev):
+    """Paths (p) and (q): config 6's recognition pipeline at full width
+    (whitener, K-SVD dictionary, feature extraction, linear classifier),
+    with the kernel K1 and with its plain version; then K3's whitening
+    epilogue fed the fitted whitener.  Returns (the launches of (p), those
+    of (q), one JSON-able dict of results)."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from lyssandra_tpu_torch.ops.cuda_patches import (
+        fused_patch_pipeline_p1, fused_patch_pipeline_reference,
+    )
+    from lyssandra_tpu_torch.ops.patches import (
+        contrast_normalize, extract_patches, remove_dc,
+    )
+    from lyssandra_tpu_torch.utils.datasets import (
+        patch_dataset, synthetic_image,
+    )
+
+    cuda_omp = importlib.import_module("lyssandra_tpu_torch.ops.cuda_omp")
+    imgs_tr, ytr, imgs_te, yte = config6_problem()
+    Xp = patch_dataset(list(imgs_tr.astype(np.float64)), p=8,
+                       n_patches=C6_WHITEN_N, seed=2).astype(np.float32)
+    Xp = torch.as_tensor(Xp, device=dev)
+    tr = torch.as_tensor(imgs_tr, device=dev)
+    te = torch.as_tensor(imgs_te, device=dev)
+
+    def pipeline():
+        """Config 6's stages, each timed on the host clock after a device
+        sync; the launches of the whole run."""
+        r = {}
+        torch.cuda.synchronize()
+        lt.reset_launch_counts()
+        t0 = time.perf_counter()
+        Xn, _ = contrast_normalize(remove_dc(Xp)[0])
+        wh = lt.Whitener().fit(Xn)
+        Xw = wh.transform(Xn)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        learner = lt.KSVDLearner(lt.KSVDConfig(
+            K=C6_K, T=C6_T, n_iter=C6_ITERS, init="data")).fit(Xw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fe = lt.FeatureExtractor(learner.D_, patch=8, stride=4,
+                                 levels=(1, 2), preprocess="dc+norm+whiten",
+                                 whitener=wh)
+        Ftr = fe.transform(tr)
+        Fte = fe.transform(te)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        clf = lt.LinearClassifier(lam=1e-2).fit(Ftr.T, ytr)
+        acc = clf.score(Fte.T, yte)
+        t4 = time.perf_counter()
+        # the same ridge formed and solved in float32 (fault C4)
+        Z = Ftr.T
+        W32 = torch.linalg.solve(
+            Z @ Z.T + 1e-2 * torch.eye(Z.shape[0], device=dev),
+            Z @ lt.classify.one_hot(ytr, 4, dev).T).T
+        r["accuracy_float32_ridge"] = float(
+            ((W32 @ Fte.T).argmax(dim=0).cpu().numpy() == yte).mean())
+        r["launches"] = lt.launch_counts()
+        r["seconds"] = {"whitener": t1 - t0, "ksvd": t2 - t1,
+                        "transform (cold)": t3 - t2, "classifier": t4 - t3}
+        r["accuracy"] = acc
+        r["feature_dim"] = int(Ftr.shape[1])
+        r["objective_trace"] = [h["objective"] for h in learner.history_]
+        return r, wh, fe, Ftr
+
+    kernel, wh, fe, Ftr = pipeline()
+    # warm transform of all images, CUDA events
+    n_img = tr.shape[0] + te.shape[0]
+    ms = cuda_ms(torch, lambda: (fe.transform(tr), fe.transform(te)),
+                 reps=3)
+    kernel["images_per_s_warm"] = n_img / ms * 1e3
+    print(f"path (p) config 6 launches: {kernel['launches']}")
+    check(kernel["launches"]["omp_fused_t"] > 0
+          and kernel["launches"]["gram"] > 0,
+          f"config 6 launched no K1 or no product: {kernel['launches']}")
+    check(tuple(Ftr.shape) == (tr.shape[0], C6_K * 5)
+          and bool(torch.isfinite(Ftr).all()), "config 6 features: shape, "
+          "finite")
+    # K1 lane by lane on one transform block (the first img_block training
+    # images' whitened patches, T=10) from the learned D
+    blk = tr[:fe.img_block]
+    Xb = F.unfold(blk[:, None], 8, stride=4)
+    Xb = fe._preprocess(Xb.transpose(0, 1).reshape(64, -1)).contiguous()
+    held = hold_k1(torch, cuda_omp, fe.D, Xb, 10)
+    # the same pipeline with K1 replaced by its plain version
+    real_k1 = cuda_omp.omp_fused
+    cuda_omp.omp_fused = cuda_omp.omp_fused_reference
+    try:
+        plain, _, _, _ = pipeline()
+    finally:
+        cuda_omp.omp_fused = real_k1
+    check(plain["launches"]["omp_fused_t"] == 0, "the plain pipeline ran K1")
+    print(f"K1 on a config-6 transform block ({Xb.shape[1]} lanes, K={C6_K}, "
+          f"T=10) from the learned D: picks agree with the plain version on "
+          f"{held['agree']:.6f} of lanes, there max |dgamma|/||x|| "
+          f"{held['gamma_rel']:.3g}, |derr|/||x||^2 {held['err_rel']:.3g}; on "
+          f"the {held['lanes_differ']} other lanes max |derr|/||x||^2 "
+          f"{held['differ_err_rel']:.3g}; with float64 the kernel agrees on "
+          f"{held['kernel_f64']:.6f}, the plain version on "
+          f"{held['plain_f64']:.6f}")
+    print(f"config 6 ({tr.shape[0]} train, {te.shape[0]} test images of "
+          f"{C6_SIZE}^2, K={C6_K}, T={C6_T}, {C6_ITERS} K-SVD iterations): "
+          f"fit by part (s) " + ", ".join(
+              f"{k} {v:.4f}" for k, v in kernel["seconds"].items())
+          + f"; warm transform {ms / 1e3:.4f} s = "
+          f"{kernel['images_per_s_warm']:.1f} images/s; accuracy "
+          f"{kernel['accuracy']:.4f} (plain K1 {plain['accuracy']:.4f}; "
+          f"with the ridge in float32 {kernel['accuracy_float32_ridge']:.4f}"
+          f"); "
+          f"feature dim {kernel['feature_dim']}; K-SVD objective "
+          f"{kernel['objective_trace'][0]:.4f} -> "
+          f"{kernel['objective_trace'][-1]:.4f}")
+    check(held["kernel_f64"] >= held["plain_f64"] - 0.005
+          and held["gamma_rel"] <= 1e-4 and held["err_rel"] <= 1e-6
+          and held["differ_err_rel"] <= 1e-3,
+          f"K1 on config 6's coding against its plain version: {held}")
+    check(kernel["accuracy"] >= 0.90
+          and abs(kernel["accuracy"] - plain["accuracy"]) <= 0.025,
+          f"config 6 accuracy {kernel['accuracy']} against "
+          f"{plain['accuracy']} with the plain K1")
+    out = {"config6": {"kernel": kernel, "plain": plain, "k1_lanes": held}}
+
+    # --- path (q): K3's whitening epilogue with the fitted whitener on a
+    # 512^2 image: against its plain version and against
+    # Whitener.transform of the plainly extracted patches
+    img = torch.as_tensor(synthetic_image("texture", IMG_SIZE, seed=0),
+                          dtype=torch.float32, device=dev)
+    wf = wh.fused_params()
+    variants = (("dc+whiten", {}), ("dc+norm+whiten", {"do_norm": True}))
+    lt.reset_launch_counts()
+    outs = [lt.ops.fused_patch_pipeline(img, 8, whiten=wf, **kw)
+            for _, kw in variants]
+    torch.cuda.synchronize()
+    launches_q = lt.launch_counts()
+    check(launches_q["fused_patches"] == len(variants),
+          f"path (q): one K3 launch a call expected, got {launches_q}")
+    q = {}
+    for (what, kw), got in zip(variants, outs):
+        want = fused_patch_pipeline_reference(img, 8, whiten=wf, **kw)
+        Xe, _ = remove_dc(extract_patches(img, 8))
+        if kw:
+            Xe, _ = contrast_normalize(Xe)
+        tr_ = wh.transform(Xe)
+        scale = max(1.0, float(want[0].abs().max()))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        err_t = float((got[0] - tr_).abs().max())
+        ms_q = cuda_ms(torch, lambda: fused_patch_pipeline_p1(
+            img, 8, whiten=wf, **kw))
+        g_ms = graph_ms(torch, lambda: fused_patch_pipeline_p1(
+            img, 8, whiten=wf, **kw))
+        q[what] = {"max_abs_err": err, "max_abs_err_transform": err_t,
+                   "scale": scale, "ms": ms_q, "graph_ms": g_ms}
+        print(f"path (q) K3 {what} with config 6's whitener, {IMG_SIZE}^2: "
+              f"max |d| to the plain version {err:.3g}, to Whitener."
+              f"transform {err_t:.3g} (largest |x| {scale:.4g}); "
+              f"{ms_q:.4f} ms a call, {g_ms:.4f} ms in a CUDA graph")
+        check(err <= 1e-4 * scale and err_t <= 1e-4 * scale,
+              f"K3 {what} with a fitted whitener: {err}, {err_t} "
+              f"(scale {scale})")
+    out["k3_whiten"] = q
+    return kernel["launches"], launches_q, out
+
+
+def runner_paths(torch, lt, dev):
+    """Path (r): the experiment runner on JSON specs in a temporary
+    workspace (encode through K1, LARS, the denoise through K3 and K2,
+    K-SVD at config 2 cut to RUN_KSVD_ITERS iterations), each against the
+    direct call; the workspace files read back.  Returns (the launches,
+    one JSON-able dict of results)."""
+    import tempfile
+
+    from lyssandra_tpu_torch.experiments import run_experiment
+    from lyssandra_tpu_torch.utils.datasets import (
+        patch_dataset, standard_test_image,
+    )
+
+    out = {}
+    launches = None
+    imgs = [standard_test_image(n, KSVD_IMG) for n in ("barbara", "lena")]
+    print(f"path (r) depth: ksvd {RUN_KSVD_ITERS} of config 2's "
+          f"{KSVD_ITERS} iterations")
+    with tempfile.TemporaryDirectory() as tmp:
+        specs = {
+            "encode": {"task": "encode", "data": {
+                "images": ["barbara", "lena"], "size": KSVD_IMG,
+                "n_patches": RUN_ENC_N, "patch": 8, "K": 256},
+                "params": {"algorithm": "bomp", "T": 8}},
+            "encode_lars": {"task": "encode", "data": {
+                "images": ["barbara", "lena"], "size": KSVD_IMG,
+                "n_patches": RUN_LARS_N, "patch": 8, "K": 256},
+                "params": {"algorithm": "lars", "lam": RUN_LARS_LAM}},
+            "denoise": {"task": "denoise", "data": {
+                "images": ["barbara"], "size": IMG_SIZE, "K": 256,
+                "seed": 7}, "params": {"sigma": SIGMA}},
+            "ksvd": {"task": "ksvd", "data": {
+                "images": ["barbara", "lena"], "size": KSVD_IMG,
+                "n_patches": KSVD_N, "patch": 8},
+                "params": {"K": KSVD_K, "T": 8, "n_iter": RUN_KSVD_ITERS}},
+        }
+        for name, spec in specs.items():
+            ws = os.path.join(tmp, name)
+            path = os.path.join(tmp, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(dict(spec, workspace=ws), f)
+            torch.cuda.synchronize()
+            lt.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = run_experiment(path)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = lt.launch_counts()
+            launches = counts if launches is None else {
+                k: launches[k] + counts[k] for k in launches}
+            with open(os.path.join(ws, "result.json")) as f:
+                check(json.load(f) == json.loads(json.dumps(got)),
+                      f"runner {name}: result.json differs from the result")
+            data = spec["data"]
+            if spec["task"] == "encode":
+                X = torch.as_tensor(patch_dataset(
+                    imgs, p=8, n_patches=data["n_patches"], seed=0).astype(
+                        np.float32), device=dev)
+                D = lt.dct_dictionary(8, 256)
+                params = dict(spec["params"])
+                G = lt.SparseEncoder(params.pop("algorithm"), params,
+                                     check_atoms=False).encode(X, D)
+                want = {"rel_err": float(torch.linalg.norm(X - D @ G)
+                                         / torch.linalg.norm(X)),
+                        "avg_nnz": float((G.abs() > 1e-10).sum(dim=0)
+                                         .double().mean())}
+                with np.load(os.path.join(ws, "Gamma.npz")) as z:
+                    saved = torch.as_tensor(z["Gamma"], device=dev)
+                check(torch.equal(saved, G) or float(
+                    (saved - G).abs().max()) <= 1e-5,
+                    f"runner {name}: saved Gamma differs from the direct "
+                    f"call's")
+            elif spec["task"] == "denoise":
+                img = standard_test_image("barbara", IMG_SIZE)
+                noisy = img + SIGMA * np.random.default_rng(7)\
+                    .standard_normal(img.shape)
+                den = lt.denoise(noisy.astype(np.float32),
+                                 lt.dct_dictionary(8, 256), SIGMA,
+                                 cfg=lt.DenoiseConfig(sigma=SIGMA))
+                want = {"psnr": lt.psnr(den, img),
+                        "psnr_noisy": lt.psnr(noisy, img)}
+                with np.load(os.path.join(ws, "denoised.npz")) as z:
+                    check(z["img"].shape == (IMG_SIZE, IMG_SIZE),
+                          "runner denoise: saved image shape")
+            else:
+                X = patch_dataset(imgs, p=8, n_patches=KSVD_N,
+                                  seed=0).astype(np.float32)
+                learner = lt.KSVDLearner(lt.KSVDConfig(
+                    K=KSVD_K, T=8, n_iter=RUN_KSVD_ITERS)).fit(X)
+                want = {"objective_trace": [h["objective"]
+                                            for h in learner.history_],
+                        "final_rmse": learner.history_[-1]["rmse"]}
+                with np.load(os.path.join(ws, "D.npz")) as z:
+                    check(z["D"].shape == (64, KSVD_K),
+                          "runner ksvd: saved D shape")
+            gaps = {k: float(np.max(np.abs(np.subtract(got[k], v))
+                                    / np.maximum(np.abs(v), 1e-12)))
+                    for k, v in want.items()}
+            out[name] = {"result": got, "direct": want, "rel_gaps": gaps,
+                         "seconds": secs, "launches": counts}
+            print(f"path (r) runner {name}: {secs:.3f} s, launches {counts}; "
+                  f"result {got}; relative gaps to the direct call {gaps}")
+            check(all(g <= 1e-5 for g in gaps.values()),
+                  f"runner {name} against the direct call: {gaps}")
+    check(launches["omp_fused_t"] > 0 and launches["omp_fused_eps"] > 0
+          and launches["fused_patches"] > 0,
+          f"path (r): K1, K2 and K3 expected, got {launches}")
+    return launches, out
 
 
 def main():
@@ -2307,9 +2863,14 @@ def main():
     # --- 9. online dictionary learning and the classifiers
     (launches_l, launches_m, launches_n), learning_out = learning_paths(
         torch, lt, dev)
+    # --- 10. LARS, config 6 and K3's whitening, the runner
+    launches_o, lars_out = lars_paths(torch, lt, dev)
+    launches_p, launches_q, feature_out = feature_paths(torch, lt, dev)
+    launches_r, runner_out = runner_paths(torch, lt, dev)
     paths = (launches, launches_g, launches_b, launches_d, launches_e,
              launches_f, launches_inp, launches_h, launches_i, launches_j,
-             launches_k, launches_l, launches_m, launches_n)
+             launches_k, launches_l, launches_m, launches_n, launches_o,
+             launches_p, launches_q, launches_r)
     for name in launches:
         total = sum(counts[name] for counts in paths)
         check(total > 0, f"kernel {name} not launched on any main path")
@@ -2322,7 +2883,8 @@ def main():
          "replaces": "lyssandra_tpu/ops/pallas_omp.py:79",
          "launches": launches["omp_fused_t"] + launches_b["omp_fused_t"]
          + launches_i["omp_fused_t"] + launches_j["omp_fused_t"]
-         + launches_n["omp_fused_t"],
+         + launches_n["omp_fused_t"] + launches_p["omp_fused_t"]
+         + launches_r["omp_fused_t"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -2332,7 +2894,8 @@ def main():
         {"name": "omp_fused (eps exit)", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
          "replaces": "lyssandra_tpu/ops/pallas_omp.py:235",
-         "launches": launches["omp_fused_eps"] + launches_k["omp_fused_eps"],
+         "launches": launches["omp_fused_eps"] + launches_k["omp_fused_eps"]
+         + launches_r["omp_fused_eps"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None,
@@ -2340,7 +2903,8 @@ def main():
         {"name": "fused_patches", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/fused_patches.cu",
          "replaces": "lyssandra_tpu/ops/pallas_patches.py:37",
-         "launches": launches["fused_patches"] + launches_k["fused_patches"],
+         "launches": launches["fused_patches"] + launches_k["fused_patches"]
+         + launches_q["fused_patches"] + launches_r["fused_patches"],
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None,
@@ -2394,6 +2958,8 @@ def main():
         check(k["launches"] > 0, f"{k['name']} launched no time on its path")
     print(json.dumps(ksvd_out))
     print(json.dumps(learning_out))
+    print(json.dumps({"lars": lars_out, **feature_out, "runner": runner_out},
+                     default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,14 +17,17 @@ Every Pallas kernel on the ported path has a hand-written CUDA kernel
 PyTorch version in the same module.  A wrapper runs the plain version only
 for tensors on the CPU; for a CUDA tensor it launches its kernel or raises.
 
-Ported so far: the patch ops, the DCT dictionary, the greedy solvers
-(OMP, Batch-OMP, group OMP, NN-OMP, masked OMP, thresholding),
-feature-sign lasso coding, FISTA and LLC, the ``SparseEncoder`` front end
-with those routes, the error-constrained and the adaptive denoiser,
-inpainting, K-SVD and online dictionary learning (``KSVDLearner``,
-``OnlineDictionaryLearner``), the classifiers (``LCKSVD``,
-``SRCClassifier``, ``LinearClassifier``, ``LinearSVM``) and the experiment
-``Workspace``.
+Ported: the patch ops, whitening (``Whitener``) and the DCT dictionary,
+the greedy solvers (OMP, Batch-OMP, group OMP, NN-OMP, masked OMP,
+thresholding), feature-sign lasso coding, the LARS-lasso homotopy
+(``lars``, ``lars_path``), FISTA and LLC, the ``SparseEncoder`` front end
+with all those routes, the error-constrained and the adaptive denoiser,
+inpainting, feature extraction (``FeatureExtractor``), K-SVD and online
+dictionary learning (``KSVDLearner``, ``OnlineDictionaryLearner``), the
+classifiers (``LCKSVD``, ``SRCClassifier``, ``LinearClassifier``,
+``LinearSVM``), the utilities (``Workspace``, datasets, profiling, the
+kernel cache) and the experiment runner (``experiments``).  Not yet: the
+device mesh (``parallel``, ``MeshConfig``; ROADMAP A8).
 
 Entry points run on the GPU unless the caller asks for the CPU, by
 ``device="cpu"`` or by handing over CPU tensors (``_device.py``).
@@ -36,11 +39,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
+from lyssandra_tpu_torch import config  # noqa: E402
 from lyssandra_tpu_torch.config import (  # noqa: E402
     DenoiseConfig,
     KSVDConfig,
+    LassoConfig,
     LCKSVDConfig,
+    OMPConfig,
     OnlineDLConfig,
+    WhitenConfig,
 )
 from lyssandra_tpu_torch.ops import (  # noqa: E402
     contrast_normalize,
@@ -53,14 +60,22 @@ from lyssandra_tpu_torch.ops import (  # noqa: E402
     remove_dc,
     reset_launch_counts,
 )
+from lyssandra_tpu_torch.ops.whitening import (  # noqa: E402
+    Whitener,
+    ZCAWhitener,
+)
 from lyssandra_tpu_torch.solvers import (  # noqa: E402
+    LarsPath,
     SparseEncoder,
     batch_omp,
     feature_sign,
     feature_sign_scan,
     fista,
     group_omp,
+    lars,
+    lars_path,
     lasso,
+    lasso_lars,
     llc,
     nn_omp,
     omp,
@@ -80,28 +95,44 @@ from lyssandra_tpu_torch.classify import (  # noqa: E402
     LinearSVM,
     SRCClassifier,
 )
-from lyssandra_tpu_torch.apps import Denoiser, denoise, psnr  # noqa: E402
+from lyssandra_tpu_torch.apps import (  # noqa: E402
+    Denoiser,
+    FeatureExtractor,
+    denoise,
+    psnr,
+)
 from lyssandra_tpu_torch.utils import Workspace  # noqa: E402
+from lyssandra_tpu_torch.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
 
 __all__ = [
     "DenoiseConfig",
     "Denoiser",
+    "FeatureExtractor",
     "KSVDConfig",
     "KSVDLearner",
     "LCKSVD",
     "LCKSVDConfig",
+    "LarsPath",
+    "LassoConfig",
     "LinearClassifier",
     "LinearSVM",
+    "OMPConfig",
     "OnlineDLConfig",
     "OnlineDLState",
     "OnlineDictionaryLearner",
     "SRCClassifier",
     "SparseEncoder",
+    "WhitenConfig",
+    "Whitener",
     "Workspace",
+    "ZCAWhitener",
     "batch_omp",
     "contrast_normalize",
     "dct_dictionary",
     "denoise",
+    "enable_compile_cache",
     "extract_patches",
     "feature_sign",
     "feature_sign_scan",
@@ -109,7 +140,10 @@ __all__ = [
     "group_omp",
     "init_dictionary",
     "ksvd",
+    "lars",
+    "lars_path",
     "lasso",
+    "lasso_lars",
     "launch_counts",
     "llc",
     "nn_omp",

@@ -21,7 +21,9 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
-BUILD_DIR = Path(__file__).parent / "_build"
+DEFAULT_DIR = Path(__file__).parent / "_build"
+# where the library is built and looked up (utils.enable_compile_cache)
+BUILD_DIR = DEFAULT_DIR
 # dynamic shared memory one block may opt in to on sm_90 (H100, H200)
 SMEM_PER_BLOCK = 232448
 NVCC_FLAGS = (
@@ -105,7 +107,7 @@ def build(extra_flags: tuple[str, ...] = ()) -> str:
     then link them into ``library_path()``.  Returns the compilers' stderr
     (where ``-Xptxas -v`` reports registers and shared memory)."""
     out = library_path()
-    BUILD_DIR.mkdir(exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{out.name}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]

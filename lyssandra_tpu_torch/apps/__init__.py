@@ -4,6 +4,11 @@ from lyssandra_tpu_torch.apps.denoise import (
     denoise_adaptive,
     psnr,
 )
+from lyssandra_tpu_torch.apps.features import (
+    FeatureExtractor,
+    spatial_pyramid_pool,
+)
 from lyssandra_tpu_torch.apps.inpaint import inpaint
 
-__all__ = ["Denoiser", "denoise", "denoise_adaptive", "inpaint", "psnr"]
+__all__ = ["Denoiser", "FeatureExtractor", "denoise", "denoise_adaptive",
+           "inpaint", "psnr", "spatial_pyramid_pool"]

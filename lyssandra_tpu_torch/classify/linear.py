@@ -32,13 +32,17 @@ def one_hot(y, C: int, device=None) -> torch.Tensor:
 
 def ridge(Z, Y, lam: float = 1.0) -> torch.Tensor:
     """W = Y Z^T (Z Z^T + lam I)^{-1} (oracle.ridge): codes Z (K, N) ->
-    targets Y (C, N), by one float32 solve."""
+    targets Y (C, N), float32.  The Gram and the solve run in float64, as
+    the oracle's do: with more features than samples and a small lam the
+    float32 normal equations lose the answer (config 6's 1,280 pooled
+    features of 240 images at lam=1e-2 classify at 0.4167 in float32 and
+    0.9750 in float64: chip_smoke.py path (p) on an H100)."""
     device = resolve_device(None, Z, Y)
-    Z = torch.as_tensor(Z, dtype=torch.float32, device=device)
-    Y = torch.as_tensor(Y, dtype=torch.float32, device=device)
+    Z = torch.as_tensor(Z, device=device).to(torch.float64)
+    Y = torch.as_tensor(Y, device=device).to(torch.float64)
     K = Z.shape[0]
     gram = Z @ Z.T + lam * torch.eye(K, dtype=Z.dtype, device=device)
-    return torch.linalg.solve(gram, Z @ Y.T).T
+    return torch.linalg.solve(gram, Z @ Y.T).T.to(torch.float32)
 
 
 def _with_intercept(Z):

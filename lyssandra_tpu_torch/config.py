@@ -1,13 +1,38 @@
-"""Frozen dataclass configs, copied from ``lyssandra_tpu.config``.
+"""Frozen dataclass configs and the experiment-spec loader, copied from
+``lyssandra_tpu.config``.
 
 A copy and not an import: importing the reference package pulls in
 ``jax``.  ``tests/test_torch_package.py`` checks that the fields and
-defaults have not drifted from the reference's.
+defaults have not drifted from the reference's.  ``MeshConfig`` waits for
+the sharded paths (ROADMAP A8).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Any
+
+
+@dataclass(frozen=True)
+class OMPConfig:
+    """Greedy-solver config: T atoms at most; eps the residual-norm target
+    (None: T-sparse mode); precision of the Gram and correlation products
+    (every product here is full float32, whatever it says)."""
+
+    T: int = 8
+    eps: float | None = None
+    precision: str = "highest"
+
+
+@dataclass(frozen=True)
+class LassoConfig:
+    """Feature-sign-search config."""
+
+    lam: float = 0.1
+    max_active: int = 64         # active-set capacity
+    max_iter: int = 100          # outer activation steps
+    max_inner: int = 20          # refinement steps per activation
 
 
 @dataclass(frozen=True)
@@ -78,3 +103,28 @@ class DenoiseConfig:
     # order) or "energy" (sorted by post-DC patch energy); the codes are
     # identical either way
     order: str = "raster"
+
+
+@dataclass(frozen=True)
+class WhitenConfig:
+    eps: float = 1e-2
+    pca_dim: int | None = None   # None = ZCA, int = PCA-whitening to that dim
+
+
+def from_yaml(path: str) -> dict[str, Any]:
+    """Load an experiment spec dict from YAML, or from JSON where PyYAML is
+    not installed."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        import json
+
+        return json.loads(text)
+    return yaml.safe_load(text)
+
+
+def replace(cfg, **kw):
+    """A copy of the frozen config ``cfg`` with the fields ``kw`` changed."""
+    return dataclasses.replace(cfg, **kw)

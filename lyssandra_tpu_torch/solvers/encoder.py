@@ -3,12 +3,11 @@
 
 Validates atom norms, chunks the signal matrix into fixed-size blocks
 (the last one zero-padded) and codes the blocks one after another on one
-device.  Routes ported so far: ``bomp``/``batch_omp``, ``omp``,
-``group_omp``, ``nn_omp``, the thresholding coders,
-``lasso``/``feature_sign``/``fss`` (feature-sign search), ``fista`` and
-``llc``.  The reference's other routes (``lars``/``lasso_lars``) raise
-``NotImplementedError`` naming the ROADMAP item that ports them, and so
-does a data ``mesh`` (ROADMAP A13).
+device.  Every route of the reference is ported: ``bomp``/``batch_omp``,
+``omp``, ``group_omp``, ``nn_omp``, the thresholding coders,
+``lasso``/``feature_sign``/``fss`` (feature-sign search),
+``lars``/``lasso_lars`` (the LARS-lasso homotopy), ``fista`` and ``llc``.
+A data ``mesh`` raises ``NotImplementedError`` (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -20,13 +19,11 @@ import torch
 
 from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.solvers import greedy
-from lyssandra_tpu_torch.solvers.lasso import feature_sign, fista
+from lyssandra_tpu_torch.solvers.lasso import feature_sign, fista, lars
 from lyssandra_tpu_torch.solvers.llc import llc
 
 _THRESHOLDING = ("thresholding", "soft_thresholding", "hard_thresholding")
 _CONVEX = ("lasso", "feature_sign", "fss", "lars", "lasso_lars")
-# routes of the reference not ported yet -> the ROADMAP item that ports them
-_NOT_PORTED = {"lars": "A8", "lasso_lars": "A8"}
 
 
 class SparseEncoder:
@@ -35,6 +32,7 @@ class SparseEncoder:
     algorithm: 'omp' | 'bomp' (batch_omp) | 'group_omp' | 'nn_omp'
                | 'thresholding' ('soft_thresholding', 'hard_thresholding')
                | 'lasso' ('feature_sign', 'fss': feature-sign search)
+               | 'lars' ('lasso_lars': LARS-lasso homotopy)
                | 'fista' | 'llc' (locality-constrained coding)
     params: algorithm kwargs (T, eps, lam, groups, kind, ...).
     block:  signals per solver call; longer inputs are coded in blocks of
@@ -58,7 +56,7 @@ class SparseEncoder:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "SparseEncoder(mesh=...) is not ported yet (ROADMAP A13)")
+                "SparseEncoder(mesh=...) is not ported yet (ROADMAP A8)")
         self.algorithm = algorithm
         self.params = dict(params or {})
         if block is None:
@@ -86,14 +84,12 @@ class SparseEncoder:
                 D, X, self.params["lam"], kind)
         if alg in ("lasso", "feature_sign", "fss"):
             return feature_sign
+        if alg in ("lars", "lasso_lars"):
+            return lars
         if alg == "fista":
             return fista
         if alg == "llc":
             return llc
-        if alg in _NOT_PORTED:
-            raise NotImplementedError(
-                f"SparseEncoder route {alg!r} is not ported yet (ROADMAP "
-                f"{_NOT_PORTED[alg]})")
         raise ValueError(f"unknown algorithm: {self.algorithm}")
 
     def _solver_kwargs(self):

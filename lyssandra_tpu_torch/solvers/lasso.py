@@ -804,3 +804,483 @@ def fista(D, X, lam: float, n_iter: int = 200, *, device=None):
     A0 = D.T @ X
     g0 = torch.zeros(D.shape[1], X.shape[1], dtype=D.dtype, device=D.device)
     return _fista_body(D, X, A0, float(lam), g0, n_iter)
+
+
+# ---- LARS-lasso homotopy -------------------------------------------------
+
+_BIG = 3.4e38
+# the homotopy's direction CG reads its device flag on the host every
+# _READ_EVERY iterations (see _masked_cg); every value gives the same codes
+_READ_EVERY = 8
+
+
+def _first_min_index(vals: torch.Tensor, target: torch.Tensor, K: int):
+    """Per row, the lowest column where ``vals`` equals ``target`` (the
+    reference's iota-min construction).  A row with no match (NaN values)
+    gives K - 1, a valid index, where the reference gathers out of
+    range."""
+    iota = torch.arange(K, dtype=torch.int32, device=vals.device)
+    return torch.where(vals == target[:, None], iota[None, :],
+                       K).amin(dim=1).clamp_max(K - 1).to(torch.int32)
+
+
+def _masked_cg(mv, rhs, x0, *, iters: int, done):
+    """The reference's two-rhs CG ``while (i < iters) & any(rs > 1e-12)``
+    inside a homotopy step whose lanes are marked ``done``.
+
+    Every iteration runs under a device-side flag, ``any(rs > 1e-12)``
+    before it: once the flag falls, x, r, p and rs stay as they are, so an
+    iteration past the reference's exit changes nothing.  The host reads
+    the flag before every ``_READ_EVERY``-th iteration only (one sync each)
+    and stops there when it has fallen; every reading interval gives the
+    same result.  The first read also carries ``all(done)``, the homotopy
+    loop's own exit test: when every lane is done the step is a no-op, and
+    None is returned instead of a solution."""
+    x = x0
+    r = rhs - mv(x0)
+    pv = r
+    rs = (r * r).sum(dim=1)                                  # (N, 2)
+    first = True
+    every = _READ_EVERY
+    for i in range(iters):
+        run = (rs > 1e-12).any()
+        if i % every == every - 1:
+            if first:
+                run_h, all_done = _host(torch.stack([run, done.all()]))
+                if all_done:
+                    return None
+                first = False
+            else:
+                run_h = _host_bool(run)
+            if not run_h:
+                break
+        Mpv = mv(pv)
+        al = rs / ((pv * Mpv).sum(dim=1) + 1e-30)
+        xn = x + al[:, None, :] * pv
+        rn = r - al[:, None, :] * Mpv
+        rs2 = (rn * rn).sum(dim=1)
+        pn = rn + (rs2 / (rs + 1e-30))[:, None, :] * pv
+        x = torch.where(run, xn, x)
+        r = torch.where(run, rn, r)
+        pv = torch.where(run, pn, pv)
+        rs = torch.where(run, rs2, rs)
+    return x
+
+
+def _lars_events(u, v, cA, wA, idx, mask, gact, lt, lam, t_stop):
+    """One homotopy segment's events, shared by the wide step and the
+    unrolled cold start: the next knot lt_next, the lanes that finish, the
+    join (atom k_join at corr_at, preferred over a leave) and the leaving
+    slot s_leave."""
+    K = u.shape[1]
+    is_act = _active_mask(idx, mask, K)
+    ltc = lt[:, None]
+    # join events: u + lt*v = +-lt  =>  lt = u / (+-1 - v)
+    ltp = u / torch.clamp_min(1.0 - v, 1e-12)
+    ltm = u / torch.clamp_max(-1.0 - v, -1e-12)
+    cand = torch.where(is_act, -_BIG, torch.maximum(
+        torch.where((ltp < ltc - 1e-6) & (ltp > 0), ltp, -_BIG),
+        torch.where((ltm < ltc - 1e-6) & (ltm > 0), ltm, -_BIG)))
+    lt_join = cand.amax(dim=1)
+    k_join = _first_min_index(cand, lt_join, K)
+
+    # self-healing overdue joins: an atom whose crossing lies in the past
+    # (|corr(lt)| > lt, skipped by two events within the 1e-6 margin)
+    # joins at once at the current lt
+    c_now = torch.where(is_act, 0.0, u + ltc * v)
+    over = c_now.abs() - ltc * (1.0 + 1e-5)
+    mx_over = over.amax(dim=1)
+    k_over = _first_min_index(over, mx_over, K)
+    has_over = mx_over > 1e-5
+    lt_join = torch.where(has_over, lt, lt_join)
+    k_join = torch.where(has_over, k_over, k_join)
+
+    # leave events: cA - lt*wA = 0 => lt = cA/wA; a just-joined slot (gact
+    # == 0) is excluded, its only zero is the join knot itself
+    wok = wA.abs() > 1e-12
+    ltz = torch.where(mask & (gact != 0) & wok,
+                      cA / torch.where(wok, wA, 1.0), -_BIG)
+    ltz = torch.where((ltz < ltc - 1e-6) & (ltz > 0), ltz, -_BIG)
+    lt_leave = ltz.amax(dim=1)
+    s_leave = (ltz == lt_leave[:, None]).to(torch.uint8).argmax(dim=1)
+
+    lt_next = torch.clamp_min(torch.maximum(lt_join, lt_leave), lam)
+    finished = lt_next <= float(np.float32(lam) + np.float32(1e-9))
+    prefer_join = lt_join >= lt_leave
+    if t_stop:
+        # the join that would exceed t_stop active atoms finishes the lane
+        # at that join knot
+        finished = finished | ((~finished) & prefer_join
+                               & (mask.sum(dim=1) >= t_stop))
+    corr_at = (u.gather(1, k_join.long()[:, None])[:, 0]
+               + lt_next * v.gather(1, k_join.long()[:, None])[:, 0])
+    return lt_next, finished, prefer_join, k_join, corr_at, s_leave
+
+
+def _lars_make_step(Dt, Xt, A0, lam, max_active, t_stop):
+    """One homotopy event step, shared by ``lars``'s loop and the path
+    recording (the reference's ``_lars_make_step``).
+
+    Along the path the active coefficients are linear in the falling
+    penalty lt, g_A(lt) = c_A - lt w_A, with c_A and w_A the two solutions
+    of one masked two-rhs CG on the gathered atoms' Gram; the inactive
+    correlations 2 d_j^T (x - D_A g_A) = u + lt v are linear too, so each
+    segment ends at a closed-form event time (a join or a leave).  Lanes
+    marked done keep their state.  Returns the next state, or None when
+    every lane was done (the state is final; see ``_masked_cg``)."""
+    N, K = A0.shape
+    A = max_active
+    dev, dt = A0.device, A0.dtype
+    eyeA = torch.eye(A, dtype=dt, device=dev)
+    D = Dt.T
+
+    def step(st):
+        idx, mask, theta, gact, cgw, lt, done, it = st
+        maskf = mask.to(dt)
+        Dact = Dt[idx.long()]                                # (N, A, p)
+        pair = maskf[:, :, None] * maskf[:, None, :]
+        M = (Dact @ Dact.transpose(1, 2)) * pair
+        Mp = torch.where(pair > 0, M, eyeA) + 1e-6 * eyeA
+        a0sel = A0.gather(1, idx.long()) * maskf
+        rhs = torch.stack([a0sel, theta / 2.0], dim=-1)     # (N, A, 2)
+        # warm start from the previous knot's solution: the active set
+        # changes by one atom per event
+        sol = _masked_cg(lambda v: Mp @ v, rhs, cgw * maskf[:, :, None],
+                         iters=A + 16, done=done)
+        if sol is None:
+            return None
+        cA = sol[..., 0] * maskf            # g at lt = 0
+        wA = sol[..., 1] * maskf            # dg/dlt (negated)
+
+        # inactive correlation lines in the residual form, both in one
+        # product: u = 2 D^T (x - D_A c), v = 2 D^T (D_A w)
+        zz = torch.stack([cA, wA], dim=1) @ Dact             # (N, 2, p)
+        rz = torch.stack([Xt - zz[:, 0], zz[:, 1]], dim=1)
+        uv = 2.0 * (rz.reshape(2 * N, -1) @ D).reshape(N, 2, K)
+        u, v = uv[:, 0], uv[:, 1]
+
+        lt_next, finished, prefer_join, k_join, corr_at, s_leave = \
+            _lars_events(u, v, cA, wA, idx, mask, gact, lt, lam, t_stop)
+        gact_new = (cA - lt_next[:, None] * wA) * maskf
+        do_join = (~finished) & prefer_join
+        do_leave = (~finished) & ~prefer_join
+
+        # join: k_join into the first free slot
+        free = (~mask).to(torch.uint8).argmax(dim=1)
+        no_free = mask.all(dim=1)
+        slot_hot = (torch.nn.functional.one_hot(free, A).bool()
+                    & (do_join & ~no_free)[:, None])
+        idx2 = torch.where(slot_hot, k_join[:, None], idx)
+        mask2 = mask | slot_hot
+        theta2 = torch.where(slot_hot, torch.sign(corr_at)[:, None], theta)
+        gact2 = torch.where(slot_hot, 0.0, gact_new)
+
+        # leave: clear the crossing slot
+        leave_hot = (torch.nn.functional.one_hot(s_leave, A).bool()
+                     & do_leave[:, None])
+        mask3 = mask2 & ~leave_hot
+        theta3 = torch.where(leave_hot, 0.0, theta2)
+        gact3 = torch.where(leave_hot, 0.0, gact2)
+
+        newly_done = finished | (do_join & no_free)
+
+        def fz(new, old):
+            return torch.where(done[:, None], old, new)
+
+        return (fz(idx2, idx), fz(mask3, mask), fz(theta3, theta),
+                fz(gact3, gact), torch.where(done[:, None, None], cgw, sol),
+                torch.where(done, lt, lt_next), done | newly_done, it + 1)
+
+    return step
+
+
+def _lars_init(A0, lam, A):
+    """lt = lambda_max = max 2|a0|; the argmax atom (the lowest index among
+    equals) active in slot 0."""
+    N, K = A0.shape
+    dev, dt = A0.device, A0.dtype
+    c0 = 2.0 * A0.abs()
+    lt0 = c0.amax(dim=1)
+    k0 = _first_min_index(c0, lt0, K)
+    idx = torch.zeros(N, A, dtype=torch.int32, device=dev)
+    idx[:, 0] = k0
+    mask = torch.zeros(N, A, dtype=torch.bool, device=dev)
+    mask[:, 0] = True
+    theta = torch.zeros(N, A, dtype=dt, device=dev)
+    theta[:, 0] = torch.sign(A0.gather(1, k0.long()[:, None])[:, 0])
+    gact = torch.zeros(N, A, dtype=dt, device=dev)
+    cgw = torch.zeros(N, A, 2, dtype=dt, device=dev)   # CG warm start
+    done0 = lt0 <= lam          # target penalty at/above lambda_max: g = 0
+    return (idx, mask, theta, gact, cgw, lt0, done0, 0)
+
+
+def _lars_unrolled_state(Dt, Xt, A0, lam, *, t_unroll, max_active,
+                         t_stop=0):
+    """Growing-width homotopy cold start: the first ``t_unroll`` events at
+    the true active width, event c's direction a (c+1)-iteration CG on
+    (N, c, c) systems, the compact geometry (stacked atoms, their Gram,
+    a0) grown by one slot an event (a leave masks its slot; slots are not
+    reused).  The events are ``_lars_make_step``'s.  Returns a ``lars``
+    loop state padded to ``max_active`` slots.  A Python loop of static
+    widths: nothing is compiled and nothing is read on the host."""
+    N, K = A0.shape
+    dev, dt = A0.device, A0.dtype
+    D = Dt.T
+
+    c0 = 2.0 * A0.abs()
+    lt = c0.amax(dim=1)
+    k0 = _first_min_index(c0, lt, K)
+    done = lt <= lam
+    idx = k0[:, None]
+    mask = torch.ones(N, 1, dtype=torch.bool, device=dev)
+    theta = torch.sign(A0.gather(1, k0.long()[:, None]))
+    gact = torch.zeros(N, 1, dtype=dt, device=dev)
+    dk = Dt[k0.long()]                                       # (N, p)
+    Dstack = dk[:, None, :]
+    Gsel = (dk * dk).sum(dim=1)[:, None, None]
+    a0sel = A0.gather(1, idx.long())
+    cgw = torch.zeros(N, 1, 2, dtype=dt, device=dev)
+
+    for _ in range(t_unroll):
+        c = idx.shape[1]
+        maskf = mask.to(dt)
+        eyec = torch.eye(c, dtype=dt, device=dev)
+        pair = maskf[:, :, None] * maskf[:, None, :]
+        Mp = torch.where(pair > 0, Gsel * pair, eyec) + 1e-6 * eyec
+        rhs = torch.stack([a0sel * maskf, theta / 2.0], dim=-1)
+
+        # two-rhs CG, c + 1 iterations, warm from the previous knot
+        x = cgw * maskf[:, :, None]
+        r = rhs - Mp @ x
+        pv = r
+        rs = (r * r).sum(dim=1)
+        for _ in range(c + 1):
+            Mpv = Mp @ pv
+            al = rs / ((pv * Mpv).sum(dim=1) + 1e-30)
+            x = x + al[:, None, :] * pv
+            r = r - al[:, None, :] * Mpv
+            rs2 = (r * r).sum(dim=1)
+            pv = r + (rs2 / (rs + 1e-30))[:, None, :] * pv
+            rs = rs2
+        sol = x * maskf[:, :, None]
+        cA, wA = sol[..., 0], sol[..., 1]
+
+        zz = torch.stack([cA, wA], dim=1) @ Dstack           # (N, 2, p)
+        rz = torch.stack([Xt - zz[:, 0], zz[:, 1]], dim=1)
+        uv = 2.0 * (rz.reshape(2 * N, -1) @ D).reshape(N, 2, K)
+        u, v = uv[:, 0], uv[:, 1]
+
+        lt_next, finished, prefer_join, k_join, corr_at, s_leave = \
+            _lars_events(u, v, cA, wA, idx, mask, gact, lt, lam, t_stop)
+        gact_new = (cA - lt_next[:, None] * wA) * maskf
+        do_join = (~finished) & prefer_join
+        do_leave = (~finished) & ~prefer_join
+
+        # leave: clear the crossing slot at compact width
+        leave_hot = (torch.nn.functional.one_hot(s_leave, c).bool()
+                     & do_leave[:, None])
+        mask_upd = mask & ~leave_hot
+        theta_upd = torch.where(leave_hot, 0.0, theta)
+        gact_upd = torch.where(leave_hot, 0.0, gact_new)
+
+        # join: always append one fresh slot, inert unless the join fires
+        # on a live lane
+        live = do_join & ~done
+        livef = live.to(dt)
+        dkj = Dt[k_join.long()] * livef[:, None]
+        cross = (Dstack @ dkj[:, :, None])[:, :, 0]          # (N, c)
+        dkk = (dkj * dkj).sum(dim=1)
+        Gsel = torch.cat([
+            torch.cat([Gsel, cross[:, :, None]], dim=2),
+            torch.cat([cross[:, None, :], dkk[:, None, None]], dim=2),
+        ], dim=1)
+        Dstack = torch.cat([Dstack, dkj[:, None, :]], dim=1)
+        a0k = (dkj * Xt).sum(dim=1)
+
+        def fz(new, old):
+            return torch.where(done[:, None], old, new)
+
+        idx = torch.cat([idx, torch.where(live, k_join, 0)[:, None]], dim=1)
+        mask = torch.cat([fz(mask_upd, mask), live[:, None]], dim=1)
+        theta = torch.cat([fz(theta_upd, theta),
+                           (torch.sign(corr_at) * livef)[:, None]], dim=1)
+        gact = torch.cat([fz(gact_upd, gact),
+                          torch.zeros(N, 1, dtype=dt, device=dev)], dim=1)
+        a0sel = torch.cat([a0sel, a0k[:, None]], dim=1)
+        cgw = torch.cat([torch.where(done[:, None, None], cgw, sol),
+                         torch.zeros(N, 1, 2, dtype=dt, device=dev)], dim=1)
+        lt = torch.where(done, lt, lt_next)
+        done = done | finished
+
+    pad = (0, max_active - idx.shape[1])
+    F = torch.nn.functional
+    return (F.pad(idx, pad), F.pad(mask, pad), F.pad(theta, pad),
+            F.pad(gact, pad), F.pad(cgw, (0, 0) + pad), lt, done, t_unroll)
+
+
+def _lars_polish(D, X, G, A0, lam, Gamma, done):
+    """Lanes that are not done or whose KKT residual exceeds 1e-2 max(lam,
+    1) are solved again by FISTA-500; the better objective wins.  The
+    reference decides on the device (``lax.cond``); here it is one host
+    sync a call."""
+    gr = 2.0 * (G @ Gamma - A0.T)
+    act = Gamma.abs() > 1e-8
+    viol = torch.where(act, (gr + lam * torch.sign(Gamma)).abs(),
+                       torch.clamp_min(gr.abs() - lam, 0.0)).amax(dim=0)
+    bad = ~done | (viol > 1e-2 * max(lam, 1.0))
+    if not _host_bool(bad.any()):
+        return Gamma, done
+    Gf = fista(D, X, lam, n_iter=500)
+
+    def obj(Gm):
+        R = X - D @ Gm
+        return (R * R).sum(dim=0) + lam * Gm.abs().sum(dim=0)
+
+    take = bad & (obj(Gf) < obj(Gamma))
+    return torch.where(take[None, :], Gf, Gamma), done | take
+
+
+def _lars_prepare(D, X, n_nonzero_coefs, max_active, device):
+    device = resolve_device(device, D, X)
+    D = _as_f32(D, device)
+    X = _as_f32(X, device)
+    t_stop = 0 if n_nonzero_coefs is None else int(n_nonzero_coefs)
+    if t_stop:
+        max_active = max(max_active, t_stop + 1)
+    return D, X, t_stop, max_active
+
+
+def lars(
+    D, X, lam: float = 0.0,
+    *, n_nonzero_coefs: int | None = None,
+    max_active: int = 64, max_steps: int = 256,
+    full_result: bool = False, polish: bool = True,
+    cold_unroll: int | None = None, device=None,
+):
+    """Batched LARS-lasso homotopy for ||x - D g||^2 + lam ||g||_1: the
+    feature-sign optimum, reached by tracing the regularization path from
+    lambda_max down to lam for all columns of X (p, N) at once.  Returns
+    Gamma (K, N), or (Gamma, done) with ``full_result``.
+
+    - ``n_nonzero_coefs=T``: a lane stops at the first join that would grow
+      its active set past T atoms and returns the knot solution there (<= T
+      nonzeros); lam (default 0) is the floor.  No polish in this mode.
+    - ``polish``: lanes whose final KKT residual violates lam are solved
+      again with FISTA-500 and the better objective wins (the float32 path
+      is sensitive to the order of nearby events).
+    - ``cold_unroll``: the first t events run at their true active width
+      (``_lars_unrolled_state``), with the same events.  None: 12 on a GPU,
+      0 on the CPU (the reference's 12 on a TPU, 0 elsewhere).
+    The reference decides its loops on the device.  Here the direction CG
+    of each step runs under a device-side "still running" flag that makes
+    an iteration past the reference's exit a no-op, and the host reads it
+    every 8 CG iterations (one sync each; the first read of a step also
+    carries the loop's exit test, every lane done): the codes are those of
+    a read at every iteration.  ``host_syncs`` counts the reads.
+
+    The steps run in the reference's segments of min(32, max_steps), so a
+    lane takes at most ceil(max_steps / seg) * seg steps after the cold
+    start.
+    """
+    D, X, t_stop, max_active = _lars_prepare(D, X, n_nonzero_coefs,
+                                             max_active, device)
+    if t_stop:
+        polish = False
+    lam = float(lam)
+    Dt, Xt = D.T, X.T
+    A0 = X.T @ D
+    seg = min(32, max_steps)
+    if cold_unroll is None:
+        cold_unroll = 12 if D.is_cuda else 0
+    if cold_unroll and cold_unroll > 0:
+        state = _lars_unrolled_state(
+            Dt, Xt, A0, lam, t_unroll=min(int(cold_unroll), max_active - 1),
+            max_active=max_active, t_stop=t_stop)
+    else:
+        state = _lars_init(A0, lam, max_active)
+    step = _lars_make_step(Dt, Xt, A0, lam, max_active, t_stop)
+    for _ in range(-(-max_steps // seg) * seg):
+        nxt = step(state)
+        if nxt is None:
+            break
+        state = nxt
+    idx, mask, _, gact, _, _, done, _ = state
+    Gamma = _dense(idx, mask, gact, D.shape[1]).T
+    if polish:
+        Gamma, done = _lars_polish(D, X, D.T @ D, A0, lam, Gamma, done)
+    return (Gamma, done) if full_result else Gamma
+
+
+lasso_lars = lars
+
+
+class LarsPath(NamedTuple):
+    """Batched regularization-path knots from :func:`lars_path`.
+
+    lambdas: (S+1, N) knot penalties (knot 0 = lambda_max, zero coefs);
+    coefs:   (S+1, N, A) compact active-coefficient values per knot;
+    idx:     (S+1, N, A) atom ids of the compact slots;
+    mask:    (S+1, N, A) slot validity;
+    keep:    (S+1, N) True at each lane's last row per distinct lambda,
+             except knots a self-healing join superseded or made (off the
+             path); read kept rows only;
+    n_knots: (N,) number of kept knots per lane (= keep.sum(0)).
+    """
+
+    lambdas: torch.Tensor
+    coefs: torch.Tensor
+    idx: torch.Tensor
+    mask: torch.Tensor
+    keep: torch.Tensor
+    n_knots: torch.Tensor
+
+    def dense(self, K: int) -> torch.Tensor:
+        """(S+1, K, N) dense coefficient path (small problems only)."""
+        S, N, A = self.coefs.shape
+        out = torch.zeros(S, N, K, dtype=self.coefs.dtype,
+                          device=self.coefs.device)
+        out.scatter_add_(2, self.idx.long(),
+                         torch.where(self.mask, self.coefs, 0.0))
+        return out.transpose(1, 2)
+
+
+def lars_path(
+    D, X, lam: float = 0.0,
+    *, n_nonzero_coefs: int | None = None,
+    max_active: int = 64, max_steps: int = 64, device=None,
+) -> LarsPath:
+    """Batched regularization path (sklearn ``lars_path``, method='lasso'):
+    every homotopy knot from lambda_max down to ``lam`` (or until
+    ``n_nonzero_coefs`` atoms are active), for all N signals at once.
+    Knot 0 is (lambda_max, all-zero); see :class:`LarsPath`.  A fixed
+    ``max_steps`` events (no early exit); lanes that finish early repeat
+    their last knot.  The CG's flag reads are :func:`lars`'s."""
+    D, X, t_stop, max_active = _lars_prepare(D, X, n_nonzero_coefs,
+                                             max_active, device)
+    lam = float(lam)
+    A0 = X.T @ D
+    state = _lars_init(A0, lam, max_active)
+    step = _lars_make_step(D.T, X.T, A0, lam, max_active, t_stop)
+    lts, gacts, idxs, masks, heals = ([state[5]], [state[3]], [state[0]],
+                                      [state[1]], [])
+    for _ in range(max_steps):
+        mask0, lt0, done0 = state[1], state[5], state[6]
+        nxt = step(state)
+        # every lane done: the rest of the path repeats the last knot
+        state = state if nxt is None else nxt
+        idx, mask, _, gact, _, lt, _, _ = state
+        # an overdue-join heal joins at an unchanged lambda: it and the
+        # knots it supersedes are off the path
+        heals.append((lt == lt0) & ~done0 & (mask.sum(1) > mask0.sum(1)))
+        lts.append(lt)
+        gacts.append(gact)
+        idxs.append(idx)
+        masks.append(mask)
+    lambdas = torch.stack(lts)
+    healed = torch.stack([torch.zeros_like(heals[0])] + heals)
+    off_path = healed | torch.cat([healed[1:], torch.zeros_like(healed[:1])])
+    keep = torch.cat([lambdas[:-1] != lambdas[1:],
+                      torch.ones_like(healed[:1])]) & ~off_path
+    return LarsPath(lambdas, torch.stack(gacts), torch.stack(idxs),
+                    torch.stack(masks), keep,
+                    keep.sum(dim=0).to(torch.int32))

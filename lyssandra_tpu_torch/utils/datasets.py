@@ -1,4 +1,4 @@
-"""Synthetic standard images, the image loader and the patch sampler,
+"""Synthetic standard images, the image loaders and the patch sampler,
 copied from ``lyssandra_tpu.utils.datasets`` (a copy and not an import:
 importing the reference package pulls in ``jax``).
 ``tests/test_torch_package.py`` and ``tests/test_torch_lasso.py`` check
@@ -29,6 +29,52 @@ def load_image(path: str, gray: bool = True) -> np.ndarray:
     if gray:
         img = img.convert("L")
     return np.asarray(img, np.float64)
+
+
+def load_image_folders(
+    root: str, *, gray: bool = True, size: int | None = None,
+    extensions: tuple[str, ...] = (".png", ".jpg", ".jpeg", ".bmp",
+                                   ".tif", ".tiff", ".npy"),
+    allow_mixed: bool = False,
+) -> tuple[list[np.ndarray], np.ndarray, list[str]]:
+    """Class-per-subdirectory image dataset: returns (images, labels,
+    class_names), classes in sorted order, files sorted within each.
+    ``size``: an optional square resize (PIL bilinear; .npy images, which
+    need no PIL, must already have it).  Images of different shapes raise
+    unless ``allow_mixed``."""
+    classes = sorted(
+        d for d in os.listdir(root)
+        if os.path.isdir(os.path.join(root, d)))
+    if not classes:
+        raise ValueError(f"no class subdirectories under {root!r}")
+    images: list[np.ndarray] = []
+    labels: list[int] = []
+    for c, cls in enumerate(classes):
+        cdir = os.path.join(root, cls)
+        for fname in sorted(os.listdir(cdir)):
+            if not fname.lower().endswith(extensions):
+                continue
+            path = os.path.join(cdir, fname)
+            if size is not None and not fname.lower().endswith(".npy"):
+                from PIL import Image
+
+                img = Image.open(path)
+                if gray:
+                    img = img.convert("L")
+                img = img.resize((size, size), Image.BILINEAR)
+                arr = np.asarray(img, np.float64)
+            else:
+                arr = load_image(path, gray=gray)
+            images.append(arr)
+            labels.append(c)
+    if not images:
+        raise ValueError(f"no images with {extensions} under {root!r}")
+    shapes = {im.shape for im in images}
+    if len(shapes) > 1 and not allow_mixed:
+        raise ValueError(
+            f"folder images have mismatched shapes {sorted(shapes)}; "
+            "pass size= to resize them (or allow_mixed=True)")
+    return images, np.asarray(labels, np.int32), classes
 
 
 def synthetic_image(

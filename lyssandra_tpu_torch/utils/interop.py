@@ -3,8 +3,12 @@
 The "weights" of this system are a dictionary D and a config.  A
 dictionary learned by ``lyssandra_tpu`` (for example by its K-SVD), saved
 or handed over as a NumPy array, denoises and codes identically here.  The
-learned state of the online learner and of the classifiers (``LCKSVD``,
-``SRCClassifier``) comes across the same way, as NumPy arrays.
+learned state of the online learner, of the classifiers (``LCKSVD``,
+``SRCClassifier``) and of a fitted ``Whitener`` comes across the same way,
+as NumPy arrays.  A reference ``FeatureExtractor`` needs nothing of its
+own: ``FeatureExtractor(dictionary_from_numpy(D), whitener=
+whitener_from_reference(...), ...)`` with its settings extracts the same
+features.
 """
 
 from __future__ import annotations
@@ -17,8 +21,13 @@ import torch
 from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.apps.denoise import Denoiser
 from lyssandra_tpu_torch.classify import LCKSVD, SRCClassifier
-from lyssandra_tpu_torch.config import DenoiseConfig, LCKSVDConfig
+from lyssandra_tpu_torch.config import (
+    DenoiseConfig,
+    LCKSVDConfig,
+    WhitenConfig,
+)
 from lyssandra_tpu_torch.dict_learning.online import OnlineDLState
+from lyssandra_tpu_torch.ops.whitening import Whitener
 from lyssandra_tpu_torch.solvers.encoder import SparseEncoder
 
 
@@ -112,3 +121,17 @@ def src_from_reference(D, y, T: int = 10, *, normalize: bool = True,
     GPU)."""
     clf = SRCClassifier(T, normalize=normalize, device=device)
     return clf._set_dictionary(_tensor(D, resolve_device(device)), y)
+
+
+def whitener_from_reference(mean, W, Winv, cfg_dict: dict | None = None,
+                            device=None) -> Whitener:
+    """A fitted Whitener from a reference one's ``mean_`` (p, 1), ``W_``
+    and ``Winv_`` (and the fields of its ``WhitenConfig``,
+    ``dataclasses.asdict`` of it), on ``device`` (default: the GPU); it
+    transforms as fitted."""
+    device = resolve_device(device)
+    wh = Whitener(WhitenConfig(**(cfg_dict or {})), device=device)
+    wh.mean_ = _tensor(np.reshape(mean, (-1, 1)), device)
+    wh.W_ = _tensor(W, device)
+    wh.Winv_ = _tensor(Winv, device)
+    return wh

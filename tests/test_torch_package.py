@@ -15,8 +15,12 @@ import torch
 import lyssandra_tpu_torch as lt
 from lyssandra_tpu.config import DenoiseConfig as JDenoiseConfig
 from lyssandra_tpu.config import KSVDConfig as JKSVDConfig
+from lyssandra_tpu.config import LassoConfig as JLassoConfig
 from lyssandra_tpu.config import LCKSVDConfig as JLCKSVDConfig
+from lyssandra_tpu.config import OMPConfig as JOMPConfig
 from lyssandra_tpu.config import OnlineDLConfig as JOnlineDLConfig
+from lyssandra_tpu.config import WhitenConfig as JWhitenConfig
+from lyssandra_tpu.config import from_yaml as j_from_yaml
 from lyssandra_tpu.utils.datasets import standard_test_image as j_standard
 from lyssandra_tpu.utils.datasets import synthetic_image as j_synthetic
 from lyssandra_tpu_torch.utils.datasets import (
@@ -44,7 +48,12 @@ def test_import_leaves_jax_out():
             "lyssandra_tpu_torch.dict_learning.online, "
             "lyssandra_tpu_torch.classify.lc_ksvd, "
             "lyssandra_tpu_torch.classify.src, "
-            "lyssandra_tpu_torch.apps.denoise; bad = [m for m in sys.modules if m.split('.')[0] in "
+            "lyssandra_tpu_torch.apps.denoise, "
+            "lyssandra_tpu_torch.apps.features, "
+            "lyssandra_tpu_torch.ops.whitening, "
+            "lyssandra_tpu_torch.experiments, "
+            "lyssandra_tpu_torch.utils.profiling, "
+            "lyssandra_tpu_torch.utils.compile_cache; bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lyssandra_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -90,16 +99,34 @@ def test_learning_configs_match_reference(name):
     assert ours == [(f.name, f.default) for f in dataclasses.fields(ref)]
 
 
-# top-level names of the reference that the port does not have yet, each
+@pytest.mark.parametrize("name", ["OMPConfig", "LassoConfig",
+                                  "WhitenConfig"])
+def test_solver_and_whiten_configs_match_reference(name):
+    ref = {"OMPConfig": JOMPConfig, "LassoConfig": JLassoConfig,
+           "WhitenConfig": JWhitenConfig}[name]
+    ours = [(f.name, f.default) for f in dataclasses.fields(getattr(lt, name))]
+    assert ours == [(f.name, f.default) for f in dataclasses.fields(ref)]
+    assert dataclasses.fields(getattr(lt, name))[0].type == \
+        dataclasses.fields(ref)[0].type
+
+
+def test_config_helpers_match_reference(tmp_path):
+    path = tmp_path / "spec.yaml"
+    path.write_text("task: ksvd\nparams: {K: 64, T: 3}\n")
+    assert lt.config.from_yaml(str(path)) == j_from_yaml(str(path))
+    cfg = lt.config.replace(lt.KSVDConfig(), K=64)
+    assert cfg.K == 64 and cfg.T == lt.KSVDConfig().T
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        cfg.K = 1
+
+
+# names and modules of the reference that the port does not have yet, each
 # with the ROADMAP item that ports it
-NOT_PORTED = {
-    "LarsPath": "A5", "lars": "A5", "lars_path": "A5", "lasso_lars": "A5",
-    "FeatureExtractor": "A6", "WhitenConfig": "A6", "Whitener": "A6",
-    "ZCAWhitener": "A6",
-    "enable_compile_cache": "A7",
-    "OMPConfig": "A7", "LassoConfig": "A7",
-    "MeshConfig": "A8",
-}
+NOT_PORTED = {"MeshConfig": "A8", "parallel": "A8"}
+
+# the subpackages and modules whose public names the port mirrors
+SUBPACKAGES = ["config", "ops", "ops.whitening", "solvers", "apps", "utils",
+               "dict_learning", "classify", "experiments"]
 
 
 def test_top_level_names_match_reference():
@@ -114,14 +141,41 @@ def test_top_level_names_match_reference():
     assert not missing, f"not in the port and not listed: {missing}"
     stale = sorted(n for n in NOT_PORTED if hasattr(lt, n))
     assert not stale, f"listed as not ported but present: {stale}"
-    assert set(NOT_PORTED) <= ref
+    assert "MeshConfig" in ref
     for name in ("contrast_normalize", "normalize_atoms",
                  "reconstruct_from_patches", "KSVDConfig", "KSVDLearner",
                  "ksvd", "init_dictionary", "Workspace", "OnlineDLConfig",
                  "OnlineDictionaryLearner", "online_dl_step",
                  "feature_sign_scan", "LCKSVD", "LCKSVDConfig",
-                 "SRCClassifier", "LinearSVM", "LinearClassifier"):
+                 "SRCClassifier", "LinearSVM", "LinearClassifier", "lars",
+                 "lars_path", "LarsPath", "lasso_lars", "Whitener",
+                 "ZCAWhitener", "FeatureExtractor", "OMPConfig",
+                 "LassoConfig", "WhitenConfig", "enable_compile_cache"):
         assert name in lt.__all__
+    # the one reference subpackage the port lacks is A8's
+    import importlib.util
+
+    assert importlib.util.find_spec("lyssandra_tpu.parallel") is not None
+    assert importlib.util.find_spec("lyssandra_tpu_torch.parallel") is None
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_names_match_reference(sub):
+    # every public name of the reference's subpackage (modules aside) is in
+    # the port's, apart from the A8 names
+    import importlib
+    import inspect
+
+    ref = importlib.import_module(f"lyssandra_tpu.{sub}")
+    ours = importlib.import_module(f"lyssandra_tpu_torch.{sub}")
+    names = {n for n in dir(ref) if not n.startswith("_")
+             and not inspect.ismodule(getattr(ref, n))}
+    missing = sorted(n for n in names if not hasattr(ours, n)
+                     and n not in NOT_PORTED)
+    assert not missing, f"lyssandra_tpu_torch.{sub} lacks {missing}"
+    assert not [n for n in NOT_PORTED if hasattr(ours, n)]
+    for n in getattr(ref, "__all__", []):
+        assert n in getattr(ours, "__all__", dir(ours)), n
 
 
 @pytest.mark.parametrize("kind", ["smooth", "texture", "edges", "mix"])
@@ -164,6 +218,9 @@ def test_launch_counters_stay_zero_on_cpu(rng):
         torch.randn(16, 40), D)
     lt.solvers.greedy._omp_impl(D, torch.randn(16, 40), 0.0, T=3,
                                 eps_mode=False, fused_select=True)
+    lt.SparseEncoder("lars", {"lam": 0.2}).encode(torch.randn(16, 40), D)
+    lt.FeatureExtractor(lt.dct_dictionary(4, 16, device="cpu"), patch=4,
+                        stride=2).transform(torch.randn(2, 12, 12))
     assert lt.launch_counts() == {
         "omp_fused_t": 0, "omp_fused_eps": 0, "fused_patches": 0,
         "group_omp_fused": 0, "fs_cold": 0, "select_abs_argmax": 0,

@@ -210,10 +210,31 @@ Phases, in order; any failure raises and exits non-zero:
      graph; (r) the experiment runner on JSON specs in a temporary
      workspace: encode (bomp, 50,000 patches, K1), encode with LARS (4,096
      patches), the sigma=25 denoise of the 512^2 barbara stand-in (K3, K2)
-     and K-SVD at config 2 cut to 2 iterations, each within 1e-5 of the
-     direct call, the workspace's files read back;
+     K-SVD at config 2 cut to 2 iterations, online_dl (one chunk of two
+     minibatches of 2,048, K=256) and inpaint (256^2, 30% missing), each
+     within 1e-5 of the direct call, the workspace's files read back
+     (lc_ksvd and src need scikit-learn, which the card's machine lacks);
+ 11. after phase 10: (s) the device mesh (lyssandra_tpu_torch.parallel) on
+     the one GPU, its slots several slots of cuda:0 (so its times are what
+     the split costs): (s1) SparseEncoder("bomp", T=8, mesh=) on the
+     262,144 Batch-OMP lanes with make_mesh() (1x1 here) and 4 slots, idx,
+     gamma and nsel equal to the unsharded call on every lane, times in
+     turns (CUDA events), host syncs a call (sync debug mode); (s2)
+     omp_model_sharded at K=16,384 (above K1's cap), N=8,192 on 2x4 slots
+     against the replicated omp: idx equal on >= 99.9% of lanes, gamma
+     within 1e-4 there, eps mode nsel equal, time and host syncs; (s3)
+     sharded_ksvd_step (4 slots) against ksvd_train_step on config 2's
+     50,000 patches (K=512, T=8), model_shard_atoms on 2x2 slots on
+     well-posed signals of those widths, KSVDLearner(mesh=) at
+     RUN_KSVD_ITERS iterations against the unsharded fit (D within 1e-5 /
+     2e-4, Gamma 1e-4 / 2e-3, tests/test_parallel.py's); (s4) the sigma=25
+     denoise of the 512^2 image on 4 slots (one K3, K2 per slot), PSNR
+     within 0.05 dB of the unsharded denoise, seconds an image; (s5)
+     OnlineDictionaryLearner(mesh=).fit at config 4's widths, 2 minibatches
+     of 4,096 on 4 slots, D within 2e-3 of the unsharded fit; each line
+     beside the card's name and power limit, and each sub-path's seconds;
 then one JSON line of the results of paths (i)-(k), one of paths (l)-(n),
-one of paths (o)-(r), one JSON line of
+one of paths (o)-(r), one of path (s), one JSON line of
 per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
 of their type, counted from this run's data for the cheapest form of the
@@ -274,6 +295,11 @@ C6_K, C6_T, C6_ITERS = 256, 6, 8
 # lam=50 on pixel-scale patches), the sigma=25 denoise, K-SVD at config 2
 # cut to RUN_KSVD_ITERS iterations
 RUN_ENC_N, RUN_LARS_N, RUN_LARS_LAM, RUN_KSVD_ITERS = 50000, 4096, 50.0, 2
+# the runner's online_dl (one chunk of two minibatches, lam=50 on
+# pixel-scale patches) and inpaint (the runner's default 256^2 image)
+RUN_ODL_N, RUN_INP_SIZE = 4096, 256
+# path (s2): atom-sharded OMP above K1's K cap of 12,304 (ROADMAP B1)
+MESH_K, MESH_N = 16384, 8192
 # published H100 SXM peaks (NVIDIA's data sheet), for the bounds
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
@@ -1729,6 +1755,14 @@ def runner_paths(torch, lt, dev):
                 "images": ["barbara", "lena"], "size": KSVD_IMG,
                 "n_patches": KSVD_N, "patch": 8},
                 "params": {"K": KSVD_K, "T": 8, "n_iter": RUN_KSVD_ITERS}},
+            "online_dl": {"task": "online_dl", "data": {
+                "images": ["barbara", "lena"], "size": KSVD_IMG,
+                "n_patches": RUN_ODL_N, "patch": 8},
+                "params": {"K": 256, "lam": RUN_LARS_LAM,
+                           "batch_size": RUN_ODL_N // 2, "chunk_batches": 2}},
+            "inpaint": {"task": "inpaint", "data": {
+                "images": ["lena"], "size": RUN_INP_SIZE, "K": 256,
+                "seed": 0}, "params": {"missing_frac": 0.3, "T": 8}},
         }
         for name, spec in specs.items():
             ws = os.path.join(tmp, name)
@@ -1778,6 +1812,29 @@ def runner_paths(torch, lt, dev):
                 with np.load(os.path.join(ws, "denoised.npz")) as z:
                     check(z["img"].shape == (IMG_SIZE, IMG_SIZE),
                           "runner denoise: saved image shape")
+            elif spec["task"] == "online_dl":
+                X = patch_dataset(imgs, p=8, n_patches=RUN_ODL_N,
+                                  seed=0).astype(np.float32)
+                learner = lt.OnlineDictionaryLearner(lt.OnlineDLConfig(
+                    **spec["params"])).fit(X)
+                want = {k: learner.history_[-1][k]
+                        for k in ("step", "batch_objective", "avg_nnz")}
+                got = dict(got, **{k: got["history"][k] for k in want})
+                with np.load(os.path.join(ws, "D.npz")) as z:
+                    check(z["D"].shape == (64, 256),
+                          "runner online_dl: saved D shape")
+            elif spec["task"] == "inpaint":
+                img = standard_test_image("lena", RUN_INP_SIZE)
+                mask = (np.random.default_rng(0).uniform(size=img.shape)
+                        > 0.3).astype(np.float64)
+                rec = lt.apps.inpaint(img * mask, mask,
+                                      lt.dct_dictionary(8, 256), T=8)
+                rec = rec.cpu().numpy().astype(np.float64)
+                miss = mask == 0
+                want = {"psnr_inpainted": lt.psnr(rec[miss], img[miss])}
+                with np.load(os.path.join(ws, "inpainted.npz")) as z:
+                    check(z["img"].shape == img.shape,
+                          "runner inpaint: saved image shape")
             else:
                 X = patch_dataset(imgs, p=8, n_patches=KSVD_N,
                                   seed=0).astype(np.float32)
@@ -1801,6 +1858,244 @@ def runner_paths(torch, lt, dev):
     check(launches["omp_fused_t"] > 0 and launches["omp_fused_eps"] > 0
           and launches["fused_patches"] > 0,
           f"path (r): K1, K2 and K3 expected, got {launches}")
+    return launches, out
+
+def mesh_paths(torch, lt, dev, card, Db, Xb, Dd, img_d, noisy, gpus=None):
+    """Path (s): the device mesh (lyssandra_tpu_torch.parallel) at full
+    width.  Its slots go to ``gpus`` in turn (default: [dev], so on one GPU
+    they are several slots of cuda:0 and the times are what the split
+    costs, not a speed-up; ``tools/mesh_gpus.py`` passes every GPU of the
+    machine).  Inputs and results lie on dev.  (s1) data-sharded Batch-OMP
+    at the benchmark's shape; (s2) atom-sharded OMP above K1's K cap;
+    (s3) sharded K-SVD at config 2's widths; (s4) the sharded denoise;
+    (s5) sharded online learning at config 4's widths.  Returns (the
+    launches of the sharded calls, one JSON-able dict of results)."""
+    import dataclasses
+
+    from lyssandra_tpu_torch.parallel import (
+        ksvd_train_step, make_mesh, omp_model_sharded, sharded_ksvd_step,
+    )
+    from lyssandra_tpu_torch.solvers.greedy import _fused_supported
+    from lyssandra_tpu_torch.utils.datasets import (
+        patch_dataset, standard_test_image,
+    )
+
+    out = {}
+    launches = None
+
+    def counted(fn):
+        """fn() with the kernel launches it makes added to the path's."""
+        nonlocal launches
+        torch.cuda.synchronize()
+        lt.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = lt.launch_counts()
+        launches = counts if launches is None else {
+            k: launches[k] + counts[k] for k in launches}
+        return res, counts
+
+    gpus = gpus or [dev]
+
+    def slots(data, model=1):
+        n = data * model
+        return make_mesh(data, model,
+                         devices=[gpus[i % len(gpus)] for i in range(n)])
+
+    # --- (s1) data-sharded Batch-OMP at the benchmark's shape
+    t_s = time.perf_counter()
+    N = Xb.shape[1]
+    single = lt.SparseEncoder("bomp", {"T": T})
+    want = single.encode(Xb, Db, dense=False)
+    s1 = {}
+    for name, mesh in (("make_mesh()", make_mesh()), ("data=4", slots(4))):
+        enc = lt.SparseEncoder("bomp", {"T": T}, mesh=mesh)
+        got, counts = counted(lambda: enc.encode(Xb, Db, dense=False))
+        idx_eq = float((got.idx == want.idx).all(dim=1).double().mean())
+        gamma_eq = bool(torch.equal(got.gamma, want.gamma))
+        check(idx_eq == 1.0 and gamma_eq and torch.equal(got.nsel, want.nsel),
+              f"(s1) {name}: idx equal on {idx_eq} of the lanes, gamma "
+              f"bitwise {gamma_eq}")
+        ms_sh, ms_un = [], []
+        for _ in range(3):                      # in turns
+            ms_sh.append(cuda_ms(torch, lambda: enc.encode(
+                Xb, Db, dense=False), reps=3))
+            ms_un.append(cuda_ms(torch, lambda: single.encode(
+                Xb, Db, dense=False), reps=3))
+        _, syncs = count_syncs(torch, lambda: enc.encode(Xb, Db, dense=False))
+        _, syncs_un = count_syncs(torch, lambda: single.encode(
+            Xb, Db, dense=False))
+        sh, un = statistics.median(ms_sh), statistics.median(ms_un)
+        s1[name] = {"mesh": mesh.shape, "launches": counts,
+                    "idx_equal": idx_eq, "gamma_bitwise": gamma_eq,
+                    "ms": sh, "unsharded_ms": un,
+                    "patches_per_s": N / sh * 1e3,
+                    "unsharded_patches_per_s": N / un * 1e3,
+                    "ratio": sh / un, "host_syncs": syncs,
+                    "unsharded_host_syncs": syncs_un}
+        print(f"[{card}] (s1) bomp encode p={P} K={K} T={T} N={N} mesh "
+              f"{name} {mesh.shape}: idx equal on {idx_eq:.6f} of the "
+              f"lanes, gamma bitwise {gamma_eq}; sharded {sh:.3f} ms = "
+              f"{N / sh * 1e3:.1f} patches/s, unsharded {un:.3f} ms = "
+              f"{N / un * 1e3:.1f} patches/s (ratio {sh / un:.3f}); host "
+              f"syncs a call {syncs} (unsharded {syncs_un}); launches "
+              f"{counts}")
+    check(s1["data=4"]["launches"]["omp_fused_t"] == 4 * math.ceil(
+        N / single.block), f"(s1) K1 launches {s1['data=4']['launches']}")
+    out["s1"] = s1
+    out["s1_seconds"] = time.perf_counter() - t_s
+
+    # --- (s2) atom-sharded OMP above K1's K cap (ROADMAP B1)
+    t_s = time.perf_counter()
+    Kb, Nb = MESH_K, MESH_N
+    rng = np.random.default_rng(11)
+    D2, X2 = make_problem(rng, P, Kb, Nb, T)
+    D2, X2 = torch.as_tensor(D2, device=dev), torch.as_tensor(X2, device=dev)
+    check(not _fused_supported(D2, X2, T),
+          f"(s2) K={Kb} must lie above K1's envelope")
+    mesh = slots(2, 4)
+    (res, counts) = counted(lambda: omp_model_sharded(
+        D2, X2, T, mesh=mesh, dense=False))
+    ref = lt.omp(D2, X2, T, dense=False)
+    same = (res.idx == ref.idx).all(dim=1) & (res.nsel == ref.nsel)
+    agree = float(same.double().mean())
+    dg = float((res.gamma - ref.gamma)[same].abs().max())
+    check(agree >= 0.999 and dg <= 1e-4,
+          f"(s2) idx equal on {agree} of the lanes, gamma {dg}")
+    ms_sh = cuda_ms(torch, lambda: omp_model_sharded(
+        D2, X2, T, mesh=mesh, dense=False), reps=3)
+    ms_rep = cuda_ms(torch, lambda: lt.omp(D2, X2, T, dense=False), reps=3)
+    _, syncs = count_syncs(torch, lambda: omp_model_sharded(
+        D2, X2, T, mesh=mesh, dense=False))
+    Xe = X2.clone()
+    Xe[:, ::2] *= 0.05
+    eps = 0.3
+    re = omp_model_sharded(D2, Xe, T, eps=eps, mesh=mesh, dense=False)
+    rr = lt.omp(D2, Xe, T, eps=eps, dense=False)
+    nsel_eq = float((re.nsel == rr.nsel).double().mean())
+    _, syncs_eps = count_syncs(torch, lambda: omp_model_sharded(
+        D2, Xe, T, eps=eps, mesh=mesh, dense=False))
+    check(nsel_eq == 1.0, f"(s2) eps mode: nsel equal on {nsel_eq}")
+    out["s2"] = {"mesh": mesh.shape, "K": Kb, "N": Nb, "idx_equal": agree,
+                 "gamma_max_diff": dg, "ms": ms_sh, "replicated_ms": ms_rep,
+                 "host_syncs": syncs, "eps_nsel_equal": nsel_eq,
+                 "eps_mean_nsel": float(re.nsel.double().mean()),
+                 "eps_host_syncs": syncs_eps, "launches": counts,
+                 "seconds": time.perf_counter() - t_s}
+    print(f"[{card}] (s2) omp_model_sharded p={P} K={Kb} T={T} N={Nb} mesh "
+          f"{mesh.shape}: idx equal on {agree:.6f} of the lanes, gamma "
+          f"within {dg:.2e} there; {ms_sh:.3f} ms ({Nb / ms_sh * 1e3:.1f} "
+          f"patches/s), replicated omp {ms_rep:.3f} ms; host syncs a call "
+          f"{syncs}; eps={eps}: nsel equal on {nsel_eq:.6f}, mean nsel "
+          f"{out['s2']['eps_mean_nsel']:.3f}, host syncs {syncs_eps}")
+    del D2, X2, Xe, res, ref, re, rr
+
+    # --- (s3) sharded K-SVD at config 2's widths, cut to RUN_KSVD_ITERS
+    t_s = time.perf_counter()
+    print(f"path (s3) depth: the learner {RUN_KSVD_ITERS} of config 2's "
+          f"{KSVD_ITERS} iterations; one step each of the sharded steps")
+    imgs = [standard_test_image(n, KSVD_IMG) for n in ("barbara", "lena")]
+    X3 = torch.as_tensor(patch_dataset(imgs, p=8, n_patches=KSVD_N)
+                         .astype(np.float32), device=dev)
+    D0 = lt.init_dictionary(X3, KSVD_K, "data", 0)
+    (st, counts_step) = counted(lambda: sharded_ksvd_step(slots(4), T=T)(
+        X3, D0))
+    rD, rG = ksvd_train_step(X3, D0, T=T)
+    step_d = float((st[0].gather() - rD).abs().max())
+    step_g = float((st[1].gather() - rG).abs().max())
+    check(step_d <= 1e-5 and step_g <= 1e-4,
+          f"(s3) sharded step D {step_d}, Gamma {step_g}")
+    # atom-sharded coding: on well-posed signals at config 2's widths (on
+    # the patches OMP's near-ties follow each product's rounding)
+    D5, X5 = make_problem(np.random.default_rng(12), 64, KSVD_K, KSVD_N, T)
+    D5, X5 = torch.as_tensor(D5, device=dev), torch.as_tensor(X5, device=dev)
+    mesh22 = slots(2, 2)
+    sm = sharded_ksvd_step(mesh22, T=T, model_shard_atoms=True)(X5, D5)
+    mD, mG = ksvd_train_step(X5, D5, T=T)
+    model_d = float((sm[0].gather() - mD).abs().max())
+    model_g = float((sm[1].gather() - mG).abs().max())
+    check(model_d <= 1e-5 and model_g <= 1e-4,
+          f"(s3) model_shard_atoms step D {model_d}, Gamma {model_g}")
+    cfg2 = lt.KSVDConfig(K=KSVD_K, T=T, n_iter=RUN_KSVD_ITERS)
+    (fit, counts_fit) = counted(lambda: lt.KSVDLearner(
+        cfg2, mesh=slots(4)).fit(X3, D0))
+    base = lt.KSVDLearner(cfg2).fit(X3, D0)
+    fit_d = float((fit.D_ - base.D_).abs().max())
+    fit_g = float((fit.Gamma_ - base.Gamma_).abs().max())
+    check(fit_d <= 2e-4 and fit_g <= 2e-3,
+          f"(s3) KSVDLearner(mesh=) D {fit_d}, Gamma {fit_g}")
+    ms_fit = cuda_ms(torch, lambda: lt.KSVDLearner(cfg2, mesh=slots(4)).fit(
+        X3, D0), reps=1)
+    ms_base = cuda_ms(torch, lambda: lt.KSVDLearner(cfg2).fit(X3, D0),
+                      reps=1)
+    out["s3"] = {"step_D": step_d, "step_Gamma": step_g,
+                 "model_step_D": model_d, "model_step_Gamma": model_g,
+                 "fit_D": fit_d, "fit_Gamma": fit_g, "fit_s": ms_fit / 1e3,
+                 "unsharded_fit_s": ms_base / 1e3,
+                 "launches_step": counts_step, "launches_fit": counts_fit,
+                 "seconds": time.perf_counter() - t_s}
+    print(f"[{card}] (s3) K-SVD K={KSVD_K} T={T} N={KSVD_N}: sharded step "
+          f"(data=4) against ksvd_train_step D {step_d:.2e}, Gamma "
+          f"{step_g:.2e}; model_shard_atoms (2x2) on well-posed signals D "
+          f"{model_d:.2e}, Gamma {model_g:.2e}; KSVDLearner(mesh=data 4) "
+          f"{RUN_KSVD_ITERS} iterations D {fit_d:.2e}, Gamma {fit_g:.2e}, "
+          f"{ms_fit / 1e3:.3f} s (unsharded {ms_base / 1e3:.3f} s); launches "
+          f"step {counts_step}, fit {counts_fit}")
+    del X3, X5, D5, st, sm, fit, base
+
+    # --- (s4) the sharded denoise through K3 and K2 per slot
+    t_s = time.perf_counter()
+    cfg = lt.DenoiseConfig(sigma=SIGMA)
+    den_sh = lt.Denoiser(Dd, cfg, mesh=slots(4))
+    den_un = lt.Denoiser(Dd, cfg)
+    (out_sh, counts) = counted(lambda: den_sh(noisy))
+    out_un = den_un(noisy)
+    p_sh, p_un = lt.psnr(out_sh, img_d), lt.psnr(out_un, img_d)
+    check(abs(p_sh - p_un) <= 0.05, f"(s4) PSNR {p_sh} against {p_un}")
+    check(counts["omp_fused_eps"] > 0 and counts["fused_patches"] == 1,
+          f"(s4) K2 per slot and one K3 expected, got {counts}")
+    # the 1x1 mesh takes the same blocked route without a split: what the
+    # route costs apart from what the split costs
+    den_one = lt.Denoiser(Dd, cfg, mesh=slots(1))
+    ms_sh, ms_un, ms_one = (cuda_ms(torch, lambda: d(noisy), reps=3)
+                            for d in (den_sh, den_un, den_one))
+    out["s4"] = {"psnr": p_sh, "unsharded_psnr": p_un, "s": ms_sh / 1e3,
+                 "unsharded_s": ms_un / 1e3, "one_slot_s": ms_one / 1e3,
+                 "launches": counts, "seconds": time.perf_counter() - t_s}
+    print(f"[{card}] (s4) denoise {IMG_SIZE}^2 sigma={SIGMA} K=256 mesh "
+          f"data=4: PSNR {p_sh:.4f} dB (unsharded {p_un:.4f}); "
+          f"{ms_sh / 1e3:.4f} s an image (unsharded, two-phase route "
+          f"{ms_un / 1e3:.4f}; blocked route on one slot "
+          f"{ms_one / 1e3:.4f}); launches {counts}")
+
+    # --- (s5) sharded online learning at config 4's widths
+    t_s = time.perf_counter()
+    X4, _ = online_problem()
+    cfg4 = lt.OnlineDLConfig(K=K4, lam=LAM, batch_size=ODL_BS,
+                             chunk_batches=2)
+    X4 = torch.as_tensor(X4[:, :2 * ODL_BS], device=dev)
+    print(f"path (s5) depth: 2 minibatches of {ODL_BS} (one chunk)")
+    t0 = time.perf_counter()
+    on_sh = lt.OnlineDictionaryLearner(cfg4, mesh=slots(4)).fit(X4)
+    torch.cuda.synchronize()
+    s_sh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_un = lt.OnlineDictionaryLearner(dataclasses.replace(cfg4)).fit(X4)
+    torch.cuda.synchronize()
+    s_un = time.perf_counter() - t0
+    on_d = float((on_sh.D_ - on_un.D_).abs().max())
+    check(on_d <= 2e-3, f"(s5) online D {on_d}")
+    out["s5"] = {"D": on_d, "s": s_sh, "unsharded_s": s_un,
+                 "seconds": time.perf_counter() - t_s}
+    print(f"[{card}] (s5) online fit K={K4} batch {ODL_BS} x 2 mesh data=4: "
+          f"D within {on_d:.2e} of the unsharded fit; {s_sh:.3f} s "
+          f"(unsharded {s_un:.3f} s)")
+    check(launches["omp_fused_t"] > 0 and launches["omp_fused_eps"] > 0
+          and launches["fused_patches"] > 0 and launches["gram"] > 0,
+          f"path (s): K1, K2, K3 and gram expected, got {launches}")
+    print("path (s) seconds: " + ", ".join(
+        f"{k} {out[k]['seconds'] if k != 's1' else out['s1_seconds']:.1f}"
+        for k in ("s1", "s2", "s3", "s4", "s5")))
     return launches, out
 
 
@@ -1853,7 +2148,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # --- 2. build
@@ -2867,10 +3163,13 @@ def main():
     launches_o, lars_out = lars_paths(torch, lt, dev)
     launches_p, launches_q, feature_out = feature_paths(torch, lt, dev)
     launches_r, runner_out = runner_paths(torch, lt, dev)
+    # --- 11. the device mesh
+    launches_s, mesh_out = mesh_paths(torch, lt, dev, card, Db, Xb, Dd,
+                                      img_d, noisy)
     paths = (launches, launches_g, launches_b, launches_d, launches_e,
              launches_f, launches_inp, launches_h, launches_i, launches_j,
              launches_k, launches_l, launches_m, launches_n, launches_o,
-             launches_p, launches_q, launches_r)
+             launches_p, launches_q, launches_r, launches_s)
     for name in launches:
         total = sum(counts[name] for counts in paths)
         check(total > 0, f"kernel {name} not launched on any main path")
@@ -2884,7 +3183,7 @@ def main():
          "launches": launches["omp_fused_t"] + launches_b["omp_fused_t"]
          + launches_i["omp_fused_t"] + launches_j["omp_fused_t"]
          + launches_n["omp_fused_t"] + launches_p["omp_fused_t"]
-         + launches_r["omp_fused_t"],
+         + launches_r["omp_fused_t"] + launches_s["omp_fused_t"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
@@ -2895,7 +3194,7 @@ def main():
          "source": "lyssandra_tpu_torch/csrc/omp_fused.cu",
          "replaces": "lyssandra_tpu/ops/pallas_omp.py:235",
          "launches": launches["omp_fused_eps"] + launches_k["omp_fused_eps"]
-         + launches_r["omp_fused_eps"],
+         + launches_r["omp_fused_eps"] + launches_s["omp_fused_eps"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None,
@@ -2904,7 +3203,8 @@ def main():
          "source": "lyssandra_tpu_torch/csrc/fused_patches.cu",
          "replaces": "lyssandra_tpu/ops/pallas_patches.py:37",
          "launches": launches["fused_patches"] + launches_k["fused_patches"]
-         + launches_q["fused_patches"] + launches_r["fused_patches"],
+         + launches_q["fused_patches"] + launches_r["fused_patches"]
+         + launches_s["fused_patches"],
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None,
@@ -2960,6 +3260,7 @@ def main():
     print(json.dumps(learning_out))
     print(json.dumps({"lars": lars_out, **feature_out, "runner": runner_out},
                      default=str))
+    print(json.dumps({"mesh": mesh_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,8 +26,10 @@ inpainting, feature extraction (``FeatureExtractor``), K-SVD and online
 dictionary learning (``KSVDLearner``, ``OnlineDictionaryLearner``), the
 classifiers (``LCKSVD``, ``SRCClassifier``, ``LinearClassifier``,
 ``LinearSVM``), the utilities (``Workspace``, datasets, profiling, the
-kernel cache) and the experiment runner (``experiments``).  Not yet: the
-device mesh (``parallel``, ``MeshConfig``; ROADMAP A8).
+kernel cache), the experiment runner (``experiments``) and the device mesh
+(``parallel``, ``MeshConfig``): a single-controller mesh of device slots,
+which several slots of one device or several GPUs fill, taken by every
+entry point's ``mesh=``.  Nothing of the reference is left unported.
 
 Entry points run on the GPU unless the caller asks for the CPU, by
 ``device="cpu"`` or by handing over CPU tensors (``_device.py``).
@@ -45,6 +47,7 @@ from lyssandra_tpu_torch.config import (  # noqa: E402
     KSVDConfig,
     LassoConfig,
     LCKSVDConfig,
+    MeshConfig,
     OMPConfig,
     OnlineDLConfig,
     WhitenConfig,
@@ -101,6 +104,7 @@ from lyssandra_tpu_torch.apps import (  # noqa: E402
     denoise,
     psnr,
 )
+from lyssandra_tpu_torch import parallel  # noqa: E402
 from lyssandra_tpu_torch.utils import Workspace  # noqa: E402
 from lyssandra_tpu_torch.utils.compile_cache import (  # noqa: E402
     enable_compile_cache,
@@ -118,6 +122,7 @@ __all__ = [
     "LassoConfig",
     "LinearClassifier",
     "LinearSVM",
+    "MeshConfig",
     "OMPConfig",
     "OnlineDLConfig",
     "OnlineDLState",

@@ -9,7 +9,10 @@ Pipeline (oracle.denoise parity):
 
 On a GPU the patch pipeline is the fused-patches kernel and the coder's
 first phase the error-stopped OMP kernel; on the CPU both are their plain
-versions.
+versions.  With a ``mesh`` (``parallel.Mesh``) the patch pipeline runs on
+the first slot and the coder is the blocked error-stopped Batch-OMP of
+``SparseEncoder``, each block split over the data slots (the error-stopped
+kernel per slot on a GPU).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from lyssandra_tpu_torch.ops.patches import (
     remove_dc,
     weighted_reconstruct,
 )
+from lyssandra_tpu_torch.parallel.mesh import mesh_device
 from lyssandra_tpu_torch.solvers.encoder import SparseEncoder
 from lyssandra_tpu_torch.solvers.greedy import (
     GreedyResult,
@@ -107,13 +111,14 @@ class Denoiser:
     D: unit-norm dictionary over p x p patches (e.g. DCT or K-SVD-learned),
     moved to ``device`` (default: where D lies if it is a tensor, else the
     GPU; see ``_device.resolve_device``).  Noisy images go to D's device.
+    With a ``mesh``, D lies on its first slot and the patches are coded
+    over its data slots; a ``device`` other than the first slot's raises.
     """
 
     def __init__(self, D, cfg: DenoiseConfig = DenoiseConfig(), *,
                  mesh=None, device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "sharded denoising (mesh=) is not ported yet")
+            device = mesh_device(mesh, device)
         device = resolve_device(device, D)
         if not isinstance(D, torch.Tensor):
             D = np.array(D, dtype=np.float32)     # a writable copy
@@ -150,10 +155,15 @@ class Denoiser:
             Xc, means = remove_dc(extract_patches(noisy, p))
         else:
             Xc, means, _ = fused_patch_pipeline(noisy, p, do_dc=True)
-        Gamma = torch.cat([
-            batch_omp(self.D, Xc[:, i:i + cfg.block], cfg.T_max, eps=eps)
-            for i in range(0, Xc.shape[1], cfg.block)
-        ], dim=1)
+        if self.mesh is not None:
+            Gamma = SparseEncoder(
+                "bomp", {"T": cfg.T_max, "eps": eps}, block=cfg.block,
+                mesh=self.mesh, check_atoms=False).encode(Xc, self.D)
+        else:
+            Gamma = torch.cat([
+                batch_omp(self.D, Xc[:, i:i + cfg.block], cfg.T_max, eps=eps)
+                for i in range(0, Xc.shape[1], cfg.block)
+            ], dim=1)
         Xhat = self.D @ Gamma + means[None, :]
         return weighted_reconstruct(Xhat, noisy, p, lam_w)
 
@@ -172,11 +182,12 @@ def denoise_adaptive(noisy, sigma: float, *, cfg: DenoiseConfig | None = None,
     """The adaptive Elad-Aharon pipeline: train a K-SVD dictionary (DCT
     start) on ``n_train`` patches of the noisy image itself with the same
     error-stopped coder, then denoise with it.  Runs on ``device``
-    (default: where ``noisy`` lies if it is a tensor, else the GPU).
-    Returns the image, and with ``return_dictionary`` also D."""
+    (default: where ``noisy`` lies if it is a tensor, else the GPU), or
+    with a ``mesh`` over its slots: the mesh goes to the encoder, the
+    learner and the denoiser.  Returns the image, and with
+    ``return_dictionary`` also D."""
     if mesh is not None:
-        raise NotImplementedError(
-            "denoise_adaptive(mesh=...) is not ported yet (ROADMAP A8)")
+        device = mesh_device(mesh, device)
     device = resolve_device(device, noisy)
     cfg = cfg or DenoiseConfig(sigma=sigma)
     noisy_np = (noisy.detach().cpu().numpy() if isinstance(noisy, torch.Tensor)
@@ -187,11 +198,11 @@ def denoise_adaptive(noisy, sigma: float, *, cfg: DenoiseConfig | None = None,
     train = patch_dataset([noisy_np], p=cfg.patch, n_patches=n_train,
                           seed=3).astype(np.float32)
     enc = SparseEncoder("bomp", {"T": cfg.T_max, "eps": eps},
-                        check_atoms=False, device=device)
+                        check_atoms=False, mesh=mesh, device=device)
     learner = KSVDLearner(
         KSVDConfig(K=K, T=cfg.T_max, n_iter=n_iter, init="dct"),
-        encoder=enc, device=device).fit(train)
-    out = Denoiser(learner.D_, cfg, device=device)(noisy, sigma)
+        encoder=enc, mesh=mesh, device=device).fit(train)
+    out = Denoiser(learner.D_, cfg, mesh=mesh, device=device)(noisy, sigma)
     return (out, learner.D_) if return_dictionary else out
 
 

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.ops.patches import (
     contrast_normalize,
+    extract_patches,
     n_patches,
     remove_dc,
 )
@@ -95,8 +96,16 @@ class FeatureExtractor:
                                device=self.D.device)
 
     def transform_image(self, img) -> torch.Tensor:
-        """One (H, W) image -> its pooled features."""
-        return self.transform(self._images(img)[None])[0]
+        """One (H, W) or (H, W, C) image -> its pooled features.  A colour
+        image codes its channel-stacked (C p^2, N) patches, pooled on the
+        (H, W) patch grid, as the reference does."""
+        img = self._images(img)
+        if img.ndim == 2:
+            return self.transform(img[None])[0]
+        X = self._preprocess(extract_patches(img, self.patch, self.stride))
+        codes = self.encoder.encode(X, self.D)
+        grid = n_patches(img.shape[0], img.shape[1], self.patch, self.stride)
+        return spatial_pyramid_pool(codes, grid, self.levels)
 
     def transform(self, imgs) -> torch.Tensor:
         """imgs: (B, H, W) array or a sequence of same-shape (H, W) arrays

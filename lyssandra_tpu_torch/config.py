@@ -3,8 +3,7 @@
 
 A copy and not an import: importing the reference package pulls in
 ``jax``.  ``tests/test_torch_package.py`` checks that the fields and
-defaults have not drifted from the reference's.  ``MeshConfig`` waits for
-the sharded paths (ROADMAP A8).
+defaults have not drifted from the reference's.
 """
 
 from __future__ import annotations
@@ -109,6 +108,15 @@ class DenoiseConfig:
 class WhitenConfig:
     eps: float = 1e-2
     pca_dim: int | None = None   # None = ZCA, int = PCA-whitening to that dim
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh config: 'data' splits the patch axis, 'model' optionally
+    the atom axis (``parallel.make_mesh``)."""
+
+    data: int = -1               # -1 = all devices on the data axis
+    model: int = 1
 
 
 def from_yaml(path: str) -> dict[str, Any]:

@@ -35,6 +35,7 @@ from lyssandra_tpu_torch.ops.dictionaries import (
     normalize_atoms,
     replacement_atoms,
 )
+from lyssandra_tpu_torch.parallel.mesh import mesh_device
 from lyssandra_tpu_torch.solvers.encoder import SparseEncoder
 from lyssandra_tpu_torch.solvers.greedy import GreedyResult
 
@@ -266,8 +267,10 @@ class KSVDLearner:
 
     ``device``: where the fit runs (default: where X lies if it is a
     tensor, else the GPU; see ``_device.resolve_device``); handed to the
-    default encoder.  ``mesh`` is accepted for the reference's signature;
-    only None is ported.
+    default encoder.  ``mesh`` (``parallel.Mesh``): the default encoder
+    splits each coding block over the mesh's data slots, and the atom sweep
+    runs on the first slot, where X, D and the gathered codes lie (see
+    ``parallel.mesh``); a ``device`` other than the first slot's raises.
     """
 
     def __init__(self, cfg: KSVDConfig = KSVDConfig(), *,
@@ -276,12 +279,12 @@ class KSVDLearner:
                  workspace=None, checkpoint_every: int = 5, mesh=None,
                  device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "KSVDLearner(mesh=...) is not ported yet (ROADMAP A8)")
+            device = mesh_device(mesh, device)
         self.cfg = cfg
         self.device = device
         self.encoder = encoder or SparseEncoder(
-            "bomp", {"T": cfg.T}, check_atoms=False, device=device)
+            "bomp", {"T": cfg.T}, check_atoms=False, mesh=mesh,
+            device=device)
         self.verbose = verbose
         self.callback = callback
         self.workspace = workspace           # utils.Workspace for resume

@@ -18,6 +18,12 @@ metrics record and one checkpoint.  Its in-loop coder is
 ``online_dl_step`` code through ``feature_sign``, which on a GPU starts from
 the fused cold-start kernel (``ops/cuda_fs.py``).  The atom sweep and the
 statistics never read a value on the host.
+
+With a ``mesh`` (``parallel.Mesh``), ``fit`` splits each minibatch's lanes
+over the data slots and codes each split on its slot; Gamma Gamma^T and
+X Gamma^T are summed from the slots' partial products on the first slot,
+in slot order, and the atom sweep runs there.  ``partial_fit`` codes on the
+first slot alone, as the reference's runs unsharded.
 """
 
 from __future__ import annotations
@@ -31,6 +37,12 @@ import torch
 from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.config import OnlineDLConfig
 from lyssandra_tpu_torch.ops.dictionaries import init_dictionary
+from lyssandra_tpu_torch.parallel.collectives import (
+    broadcast,
+    gather_to,
+    slot_sum,
+)
+from lyssandra_tpu_torch.parallel.mesh import data_shards, mesh_device
 from lyssandra_tpu_torch.solvers.lasso import (
     _fista_body,
     feature_sign,
@@ -86,25 +98,45 @@ def _code_batch(D, Xb, lam, coder: str, fs_opts: dict,
     raise ValueError(coder)
 
 
+def _code_stats(D, Xb, lam, coder, fs_opts, code_blocks, mesh=None):
+    """A minibatch's codes and statistics: (Gamma, Gamma Gamma^T,
+    X Gamma^T), on D's device.  With a mesh the lanes are coded per data
+    slot, and the statistics summed from the slots' partials in slot
+    order."""
+    if mesh is None:
+        Gamma = _code_batch(D, Xb, lam, coder, fs_opts, code_blocks)
+        return Gamma, Gamma @ Gamma.T, Xb @ Gamma.T
+    first = D.device
+    shards = data_shards(Xb, mesh)
+    Ds = broadcast(D, [x.device for x in shards])
+    G = [_code_batch(d, x, lam, coder, fs_opts, code_blocks)
+         for d, x in zip(Ds, shards)]
+    return (torch.cat(gather_to(G, first), dim=1),
+            slot_sum([g @ g.T for g in G], first),
+            slot_sum([x @ g.T for x, g in zip(shards, G)], first))
+
+
 def _online_chunk(
     D, A, B, Xc, lam, beta,
     *, n_sweeps, coder, max_active, max_iter, max_inner, code_blocks=1,
-    warm_start=0, cold_unroll=0,
+    warm_start=0, cold_unroll=0, mesh=None,
 ):
     """The Mairal update over a chunk of minibatches, Xc (nb, p, bs), one
     after another.  Returns (D, A, B, objs, nnzs): objs and nnzs (nb,) are
     each minibatch's post-update objective and mean nnz, on the device
     (nothing here reads a value on the host beyond the coder's own loop
-    exits)."""
+    exits).  ``mesh``: code each minibatch per data slot
+    (``_code_stats``)."""
     fs_opts = dict(
         max_active=max_active, max_iter=max_iter, max_inner=max_inner,
         warm_start=warm_start, cold_unroll=cold_unroll,
     )
     objs, nnzs = [], []
     for Xb in Xc:
-        Gamma = _code_batch(D, Xb, lam, coder, fs_opts, code_blocks)
-        A = beta * A + Gamma @ Gamma.T
-        B = beta * B + Xb @ Gamma.T
+        Gamma, GG, XG = _code_stats(D, Xb, lam, coder, fs_opts, code_blocks,
+                                    mesh)
+        A = beta * A + GG
+        B = beta * B + XG
         D = _dict_update_body(D, A, B, n_sweeps)
         R = Xb - D @ Gamma
         objs.append((R * R).sum() + lam * Gamma.abs().sum())
@@ -148,8 +180,9 @@ class OnlineDictionaryLearner:
     streams minibatches from X in chunks.  ``state`` is an
     :class:`OnlineDLState` (checkpointable).  ``device``: where the
     learner runs (default: where the first data tensor lies, else the GPU;
-    see ``_device.resolve_device``).  ``mesh`` is accepted for the
-    reference's signature; only None is ported.
+    see ``_device.resolve_device``).  ``mesh`` (``parallel.Mesh``): ``fit``
+    codes each minibatch per data slot and learns on the first slot; a
+    ``device`` other than the first slot's raises.
     """
 
     def __init__(
@@ -158,9 +191,8 @@ class OnlineDictionaryLearner:
         device=None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "OnlineDictionaryLearner(mesh=...) is not ported yet "
-                "(ROADMAP A8)")
+            device = mesh_device(mesh, device)
+        self.mesh = mesh
         self.cfg = cfg
         self.coder = coder
         self.verbose = verbose
@@ -285,7 +317,7 @@ class OnlineDictionaryLearner:
                     max_active=cfg.fs_max_active, max_iter=cfg.fs_max_iter,
                     max_inner=cfg.fs_max_inner, code_blocks=cfg.code_blocks,
                     warm_start=cfg.fs_warm_start,
-                    cold_unroll=self._resolve_cold_unroll(),
+                    cold_unroll=self._resolve_cold_unroll(), mesh=self.mesh,
                 )
                 stats = [objs[-1], nnzs[-1]]
                 if Xh is not None:

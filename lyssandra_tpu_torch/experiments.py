@@ -43,6 +43,7 @@ from lyssandra_tpu_torch.config import (
     OnlineDLConfig,
     from_yaml,
 )
+from lyssandra_tpu_torch.parallel.mesh import mesh_device
 from lyssandra_tpu_torch.utils.workspace import Workspace
 
 
@@ -116,10 +117,11 @@ def _np(t) -> np.ndarray:
 def run_experiment(spec: dict[str, Any] | str, *, mesh=None,
                    device=None) -> dict:
     """Run one experiment spec (a dict, or the path of a YAML/JSON file)
-    on ``device`` (default: the GPU)."""
+    on ``device`` (default: the GPU).  ``mesh`` (``parallel.Mesh``) goes to
+    the K-SVD and online learners, the denoiser and the encoder, as in the
+    reference; the other tasks run on its first slot."""
     if mesh is not None:
-        raise NotImplementedError(
-            "run_experiment(mesh=...) is not ported yet (ROADMAP A8)")
+        device = mesh_device(mesh, device)
     if isinstance(spec, str):
         spec = from_yaml(spec)
     task = spec["task"]
@@ -132,7 +134,7 @@ def run_experiment(spec: dict[str, Any] | str, *, mesh=None,
         from lyssandra_tpu_torch.dict_learning import KSVDLearner
 
         X = _load_patches(data)
-        learner = KSVDLearner(KSVDConfig(**params), workspace=ws,
+        learner = KSVDLearner(KSVDConfig(**params), mesh=mesh, workspace=ws,
                               device=device).fit(X)
         result = {
             "task": task,
@@ -148,7 +150,7 @@ def run_experiment(spec: dict[str, Any] | str, *, mesh=None,
         n_hold = int(data.get("n_holdout", 0))
         hold = X[:, :n_hold] if n_hold else None
         learner = OnlineDictionaryLearner(
-            OnlineDLConfig(**params), device=device,
+            OnlineDLConfig(**params), mesh=mesh, device=device,
         ).fit(X[:, n_hold:], n_epochs=int(spec.get("n_epochs", 1)),
               holdout=hold)
         result = {"task": task, "history": learner.history_[-1]}
@@ -176,7 +178,7 @@ def run_experiment(spec: dict[str, Any] | str, *, mesh=None,
         D = (dct_dictionary_color(cfg.patch, K, device=device) if color
              else dct_dictionary(cfg.patch, K, device=device))
         den = denoise(noisy.astype(np.float32), D, cfg.sigma, cfg=cfg,
-                      device=device)
+                      mesh=mesh, device=device)
         result = {
             "task": task, "image": name,
             "psnr_noisy": psnr(noisy, img),
@@ -228,7 +230,8 @@ def run_experiment(spec: dict[str, Any] | str, *, mesh=None,
 
         X = torch.as_tensor(_load_patches(data), device=device)
         alg = params.pop("algorithm", "bomp")
-        enc = SparseEncoder(alg, params, check_atoms=False, device=device)
+        enc = SparseEncoder(alg, params, mesh=mesh, check_atoms=False,
+                            device=device)
         D = dct_dictionary(int(data.get("patch", 8)),
                            int(data.get("K", 256)), device=device)
         Gamma = enc.encode(X, D)

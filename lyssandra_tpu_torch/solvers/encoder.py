@@ -7,7 +7,14 @@ device.  Every route of the reference is ported: ``bomp``/``batch_omp``,
 ``omp``, ``group_omp``, ``nn_omp``, the thresholding coders,
 ``lasso``/``feature_sign``/``fss`` (feature-sign search),
 ``lars``/``lasso_lars`` (the LARS-lasso homotopy), ``fista`` and ``llc``.
-A data ``mesh`` raises ``NotImplementedError`` (ROADMAP A8).
+
+With a ``mesh`` (``lyssandra_tpu_torch.parallel``), the routes whose solve
+runs without host-side loops (the reference's ``_TRACEABLE``) split each
+block's columns over the data slots: the solver runs once per slot on that
+slot's device, with D replicated once per ``encode``, and the results are
+concatenated on the first slot in slot order.  Lasso and LARS drive host
+loops that end with the block's slowest lane, so they code each whole
+block on the first slot, keeping their whole-block trip counts.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from typing import Any
 import torch
 
 from lyssandra_tpu_torch._device import resolve_device
+from lyssandra_tpu_torch.parallel.collectives import broadcast, gather_to
+from lyssandra_tpu_torch.parallel.mesh import data_shards, mesh_device
 from lyssandra_tpu_torch.solvers import greedy
 from lyssandra_tpu_torch.solvers.lasso import feature_sign, fista, lars
 from lyssandra_tpu_torch.solvers.llc import llc
@@ -39,9 +48,12 @@ class SparseEncoder:
             this size, the last one zero-padded.  Default 16384 for greedy
             routes, 2048 for convex ones (the reference's defaults, tuned
             on a TPU).
-    mesh:   accepted for the reference's signature; only None is ported.
+    mesh:   optional ``parallel.Mesh``: blocks split over its data slots
+            (see above); results come back on its first slot.
     device: where D and X go (default: where the first tensor input lies,
-            else the GPU; see ``_device.resolve_device``).
+            else the GPU; see ``_device.resolve_device``).  With a mesh,
+            the mesh decides, and a device other than its first slot's
+            raises ValueError.
     """
 
     def __init__(
@@ -55,14 +67,14 @@ class SparseEncoder:
         device=None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "SparseEncoder(mesh=...) is not ported yet (ROADMAP A8)")
+            device = mesh_device(mesh, device)
         self.algorithm = algorithm
         self.params = dict(params or {})
         if block is None:
             block = 2048 if algorithm in _CONVEX else 16384
         self.block = block
         self.check_atoms = check_atoms
+        self.mesh = mesh
         self.device = device
 
     # -- internals ---------------------------------------------------------
@@ -99,6 +111,24 @@ class SparseEncoder:
         kw.pop("kind", None)
         return kw
 
+    # routes whose solve runs without host-side loops, so a block's columns
+    # can split over the data slots (the reference's _TRACEABLE)
+    _TRACEABLE = ("bomp", "batch_omp", "omp", "group_omp", "nn_omp",
+                  *_THRESHOLDING, "llc", "fista")
+
+    def _mesh_call(self, solver, kw, Ds, Xb):
+        """One block over the mesh's data slots: the solver once per slot
+        (every slot dispatched before any result is read), the results
+        concatenated on the first slot in slot order.  Ds: D on each data
+        slot's device."""
+        first = self.mesh.first
+        outs = [solver(d, x, **kw)
+                for d, x in zip(Ds, data_shards(Xb, self.mesh))]
+        if kw.get("dense", True):
+            return torch.cat(gather_to(outs, first), dim=1)
+        return greedy.GreedyResult(*(torch.cat(gather_to(f, first), dim=0)
+                                     for f in zip(*outs)))
+
     # greedy routes whose solvers return a compact GreedyResult when asked
     # (group_omp's compact slots are T * group_size wide)
     _COMPACT = ("bomp", "batch_omp", "omp", "nn_omp", "group_omp")
@@ -130,13 +160,21 @@ class SparseEncoder:
         kw = self._solver_kwargs()
         if not dense:
             kw["dense"] = False
+        if self.mesh is not None and self.algorithm in self._TRACEABLE:
+            Ds = broadcast(D, self.mesh.data_devices())
+
+            def call(Xb):
+                return self._mesh_call(solver, kw, Ds, Xb)
+        else:
+            def call(Xb):
+                return solver(D, Xb, **kw)
         if N <= self.block:
-            return solver(D, X, **kw)
+            return call(X)
 
         # pad to full blocks so every call sees the same shape
         nblocks = math.ceil(N / self.block)
         Xp = torch.nn.functional.pad(X, (0, nblocks * self.block - N))
-        outs = [solver(D, Xp[:, b * self.block:(b + 1) * self.block], **kw)
+        outs = [call(Xp[:, b * self.block:(b + 1) * self.block])
                 for b in range(nblocks)]
         if not dense:
             res = greedy.GreedyResult.concatenate(outs)

@@ -106,8 +106,13 @@ def test_ksvd_dictionary_carries_over(rng):
 
 
 def test_denoiser_mesh_not_ported():
-    with pytest.raises(NotImplementedError):
-        lt.Denoiser(lt.dct_dictionary(8, 64, device="cpu"), mesh=object())
+    # a mesh that is not a Mesh raises TypeError; a CPU mesh is taken and
+    # leaves the two-phase fast path
+    D = lt.dct_dictionary(8, 64, device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        lt.Denoiser(D, mesh=object())
+    den = lt.Denoiser(D, mesh=lt.parallel.make_mesh(devices=["cpu"] * 2))
+    assert not den._fast_path() and den.D.device == torch.device("cpu")
 
 
 def test_fast_path_follows_the_kernel_envelope(rng, monkeypatch):

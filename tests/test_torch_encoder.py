@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import lyssandra_tpu as jlt
 from lyssandra_tpu.solvers import greedy as jgreedy
 from lyssandra_tpu_torch import SparseEncoder, sparse_encoder, threshold_code
+from lyssandra_tpu_torch.parallel import make_mesh
 from lyssandra_tpu_torch.utils.interop import encoder_from_reference
 
 torch.set_num_threads(1)
@@ -102,21 +103,30 @@ def test_compact_rejects_thresholding(tiny):
 
 @pytest.mark.parametrize("alg", ["lars", "lasso_lars"])
 def test_unported_routes_raise(tiny, alg):
-    # the LARS routes code now (tests/test_torch_lars.py holds them to the
-    # reference); what they still lack is the data mesh (ROADMAP A8)
+    # the LARS routes code (tests/test_torch_lars.py holds them to the
+    # reference), and with a mesh they code each whole block on its first
+    # slot; a mesh that is not a Mesh raises
     D, X = tiny
     G = SparseEncoder(alg, {"lam": 0.2}, device="cpu").encode(X, D)
     assert G.shape == (D.shape[1], X.shape[1]) and torch.isfinite(G).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(TypeError, match="Mesh"):
         SparseEncoder(alg, {"lam": 0.2}, mesh=object())
+    mesh = make_mesh(devices=["cpu"] * 4)
+    Gm = SparseEncoder(alg, {"lam": 0.2}, mesh=mesh).encode(X, D)
+    np.testing.assert_array_equal(Gm.numpy(), G.numpy())
 
 
 def test_unknown_route_and_mesh_raise(tiny):
     D, X = tiny
     with pytest.raises(ValueError, match="unknown algorithm: nope"):
         SparseEncoder("nope", device="cpu").encode(X, D)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="Mesh"):
         SparseEncoder("bomp", {"T": 3}, mesh=object())
+    mesh = make_mesh(devices=["cpu"] * 3)
+    enc = SparseEncoder("bomp", {"T": 3}, mesh=mesh)
+    assert enc.mesh is mesh and enc.device == torch.device("cpu")
+    assert torch.equal(enc.encode(X, D), SparseEncoder(
+        "bomp", {"T": 3}, device="cpu").encode(X, D))
     assert SparseEncoder("bomp").block == 16384
     assert SparseEncoder("lasso").block == 2048
     assert sparse_encoder("omp", {"T": 2}, block=8).block == 8

@@ -22,6 +22,7 @@ from lyssandra_tpu.utils import load_image_folders as j_load_folders
 from lyssandra_tpu_torch import _build
 from lyssandra_tpu_torch.config import from_yaml
 from lyssandra_tpu_torch.experiments import main, run_experiment
+from lyssandra_tpu_torch.parallel import make_mesh
 from lyssandra_tpu_torch.utils import (
     Workspace,
     cache_enabled,
@@ -161,8 +162,11 @@ def test_online_and_lcksvd_experiments_run(tmp_path):
 
 
 def test_mesh_and_errors(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="Mesh"):
         run_experiment(SPECS["encode"], mesh=object(), device="cpu")
+    mesh = make_mesh(devices=["cpu"] * 2)
+    assert run_experiment(SPECS["encode"], mesh=mesh) == run_experiment(
+        SPECS["encode"], device="cpu")
     with pytest.raises(ValueError, match="unknown task"):
         run_experiment({"task": "nope"}, device="cpu")
     with pytest.raises(ValueError, match="labeled task"):

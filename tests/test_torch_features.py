@@ -6,8 +6,10 @@ Tolerances: ZCA matrices and whitened data within 1e-4 of the largest
 entry (two float32 eigensolvers); PCA rows the same up to each component's
 sign; pooling exact (a max); features over an orthonormal DCT (K=64)
 within 1e-4, over the overcomplete K=256 DCT on >= 99% of entries (OMP
-near-ties follow rounding); the fused patch pipeline's plain version with
-``fused_params`` within 1e-4 of ``transform`` of the extracted patches."""
+near-ties follow rounding); a colour ``transform_image`` over a unit-norm
+Gaussian (192, 64) dictionary within 1e-4 of the largest feature; the
+fused patch pipeline's plain version with ``fused_params`` within 1e-4 of
+``transform`` of the extracted patches."""
 
 import dataclasses
 
@@ -226,6 +228,20 @@ def test_img_block_invariance(rng):
     _close(one.numpy(), big.numpy(), rel=1e-6)
     lists = fe.transform(list(imgs))
     np.testing.assert_array_equal(lists.numpy(), big.numpy())
+
+
+@pytest.mark.parametrize("preprocess", ["dc", "dc+norm"])
+def test_transform_image_colour_matches_jax(rng, preprocess):
+    # an (H, W, C) image codes its channel-stacked (3 p^2, N) patches and
+    # pools them on the (H, W) patch grid, as the reference's does
+    img = (255.0 * rng.random((24, 24, 3))).astype(np.float32)
+    D = rng.standard_normal((192, 64))
+    D = (D / np.linalg.norm(D, axis=0)).astype(np.float32)
+    kw = dict(patch=8, stride=4, preprocess=preprocess)
+    got = FeatureExtractor(D, device="cpu", **kw).transform_image(img)
+    want = np.asarray(JFeatureExtractor(D, **kw).transform_image(img))
+    assert got.shape == want.shape == (64 * 21,)
+    _close(got.numpy(), want)
 
 
 def test_feature_extractor_encoder_and_device(rng):

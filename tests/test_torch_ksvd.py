@@ -433,13 +433,19 @@ def test_checkpoints_are_not_the_reference_format(rng, tmp_path):
 
 
 def test_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="A8"):
+    # a mesh that is not a Mesh raises TypeError; a CPU mesh is taken and
+    # handed to the default encoder
+    with pytest.raises(TypeError, match="Mesh"):
         lt.KSVDLearner(lt.KSVDConfig(), mesh=object())
     from lyssandra_tpu_torch.apps import denoise_adaptive
 
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="Mesh"):
         denoise_adaptive(np.zeros((16, 16)), 20.0, mesh=object(),
                          device="cpu")
+    mesh = lt.parallel.make_mesh(devices=["cpu"] * 2)
+    learner = lt.KSVDLearner(lt.KSVDConfig(), mesh=mesh)
+    assert learner.encoder.mesh is mesh
+    assert learner.device == torch.device("cpu")
 
 
 def test_ksvd_alias_and_config_replace():

@@ -322,8 +322,10 @@ def test_kill_and_resume(rng, tmp_path):
 
 
 def test_learner_options(rng):
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="Mesh"):
         lt.OnlineDictionaryLearner(mesh=object())
+    mesh = lt.parallel.make_mesh(devices=["cpu"] * 2)
+    assert lt.OnlineDictionaryLearner(mesh=mesh).mesh is mesh
     learner = lt.OnlineDictionaryLearner(lt.OnlineDLConfig(K=8))
     assert learner._resolve_cold_unroll() == 0
     learner.cfg = lt.OnlineDLConfig(K=8, fs_cold_unroll=6)

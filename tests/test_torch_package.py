@@ -53,6 +53,7 @@ def test_import_leaves_jax_out():
             "lyssandra_tpu_torch.ops.whitening, "
             "lyssandra_tpu_torch.experiments, "
             "lyssandra_tpu_torch.utils.profiling, "
+            "lyssandra_tpu_torch.parallel, "
             "lyssandra_tpu_torch.utils.compile_cache; bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lyssandra_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -121,12 +122,12 @@ def test_config_helpers_match_reference(tmp_path):
 
 
 # names and modules of the reference that the port does not have yet, each
-# with the ROADMAP item that ports it
-NOT_PORTED = {"MeshConfig": "A8", "parallel": "A8"}
+# with the ROADMAP item that ports it: none are left
+NOT_PORTED: dict[str, str] = {}
 
 # the subpackages and modules whose public names the port mirrors
 SUBPACKAGES = ["config", "ops", "ops.whitening", "solvers", "apps", "utils",
-               "dict_learning", "classify", "experiments"]
+               "dict_learning", "classify", "experiments", "parallel"]
 
 
 def test_top_level_names_match_reference():
@@ -152,11 +153,12 @@ def test_top_level_names_match_reference():
                  "ZCAWhitener", "FeatureExtractor", "OMPConfig",
                  "LassoConfig", "WhitenConfig", "enable_compile_cache"):
         assert name in lt.__all__
-    # the one reference subpackage the port lacks is A8's
+    # the reference's last subpackage, the device mesh, is ported
     import importlib.util
 
     assert importlib.util.find_spec("lyssandra_tpu.parallel") is not None
-    assert importlib.util.find_spec("lyssandra_tpu_torch.parallel") is None
+    assert importlib.util.find_spec("lyssandra_tpu_torch.parallel") is not None
+    assert "MeshConfig" in lt.__all__
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)

@@ -229,7 +229,10 @@ Phases, in order; any failure raises and exits non-zero:
      RUN_KSVD_ITERS iterations against the unsharded fit (D within 1e-5 /
      2e-4, Gamma 1e-4 / 2e-3, tests/test_parallel.py's); (s4) the sigma=25
      denoise of the 512^2 image on 4 slots (one K3, K2 per slot), PSNR
-     within 0.05 dB of the unsharded denoise, seconds an image; (s5)
+     within 0.05 dB of the unsharded denoise, K2 on each of the route's
+     64 shards of 4,096 patches at T=32 against its plain version (nsel
+     and picks equal on >= 99.9% of lanes, |dgamma| <= 1e-5 ||x|| there,
+     path (k)'s rule), seconds an image; (s5)
      OnlineDictionaryLearner(mesh=).fit at config 4's widths, 2 minibatches
      of 4,096 on 4 slots, D within 2e-3 of the unsharded fit; each line
      beside the card's name and power limit, and each sub-path's seconds;
@@ -1872,9 +1875,14 @@ def mesh_paths(torch, lt, dev, card, Db, Xb, Dd, img_d, noisy, gpus=None):
     launches of the sharded calls, one JSON-able dict of results)."""
     import dataclasses
 
+    from lyssandra_tpu_torch.ops.cuda_omp import (
+        omp_fused, omp_fused_reference,
+    )
+    from lyssandra_tpu_torch.ops.cuda_patches import fused_patch_pipeline
     from lyssandra_tpu_torch.parallel import (
         ksvd_train_step, make_mesh, omp_model_sharded, sharded_ksvd_step,
     )
+    from lyssandra_tpu_torch.parallel.mesh import data_shards, row_copies
     from lyssandra_tpu_torch.solvers.greedy import _fused_supported
     from lyssandra_tpu_torch.utils.datasets import (
         patch_dataset, standard_test_image,
@@ -2054,6 +2062,39 @@ def mesh_paths(torch, lt, dev, card, Db, Xb, Dd, img_d, noisy, gpus=None):
     check(abs(p_sh - p_un) <= 0.05, f"(s4) PSNR {p_sh} against {p_un}")
     check(counts["omp_fused_eps"] > 0 and counts["fused_patches"] == 1,
           f"(s4) K2 per slot and one K3 expected, got {counts}")
+    # K2 at the shape this route gives it: the call's patches (K3) in its
+    # padded blocks, each block's shards of the data slots, T=T_max and the
+    # call's eps; against its plain version lane by lane, path (k)'s rule
+    Xc, _, _ = fused_patch_pipeline(noisy, cfg.patch, do_dc=True)
+    eps4 = cfg.gain * cfg.patch * SIGMA
+    nb = math.ceil(Xc.shape[1] / cfg.block)
+    Xp = torch.nn.functional.pad(Xc, (0, nb * cfg.block - Xc.shape[1]))
+    Ds4 = row_copies(Dd, den_sh.mesh)
+    pairs = [dx for b in range(nb) for dx in zip(Ds4, data_shards(
+        Xp[:, b * cfg.block:(b + 1) * cfg.block], den_sh.mesh))]
+    shards = [x for _, x in pairs]
+    kw4 = {"T": cfg.T_max, "eps": eps4, "eps_mode": True}
+    got, want = ([f(d, x, **kw4) for d, x in pairs]
+                 for f in (omp_fused, omp_fused_reference))
+    got, want = (tuple(torch.cat([t.to(dev) for t in fs]) for fs in zip(*r))
+                 for r in (got, want))
+    held4 = hold_lanes(torch, got, want,
+                       torch.cat([x.to(dev) for x in shards], dim=1))
+    held4["nsel_agree"] = float((got[3] == want[3]).double().mean())
+    held4["max_abs_err"] = float((got[1] - want[1]).abs().max())
+    held4["mean_nsel"] = float(got[3].double().mean())
+    held4["shards"] = [len(shards), shards[0].shape[1]]
+    print(f"[{card}] (s4) K2 on the route's {len(shards)} shards of "
+          f"{shards[0].shape[1]} patches (K=256, T={cfg.T_max}, eps={eps4}): "
+          f"nsel agree on {held4['nsel_agree']:.6f} of lanes, nsel and "
+          f"picks on {held4['agree']:.6f}, mean nsel "
+          f"{held4['mean_nsel']:.3f}; max |dgamma| "
+          f"{held4['max_abs_err']:.3g} (on agreeing lanes "
+          f"{held4['gamma_rel']:.3g} of ||x||)")
+    check(held4["nsel_agree"] >= 0.999 and held4["agree"] >= 0.999
+          and held4["gamma_rel"] <= 1e-5,
+          f"(s4) K2 on the route's shards against its plain version: {held4}")
+    del Xc, Xp, pairs, shards, got, want
     # the 1x1 mesh takes the same blocked route without a split: what the
     # route costs apart from what the split costs
     den_one = lt.Denoiser(Dd, cfg, mesh=slots(1))
@@ -2061,7 +2102,8 @@ def mesh_paths(torch, lt, dev, card, Db, Xb, Dd, img_d, noisy, gpus=None):
                             for d in (den_sh, den_un, den_one))
     out["s4"] = {"psnr": p_sh, "unsharded_psnr": p_un, "s": ms_sh / 1e3,
                  "unsharded_s": ms_un / 1e3, "one_slot_s": ms_one / 1e3,
-                 "launches": counts, "seconds": time.perf_counter() - t_s}
+                 "k2_shards": held4, "launches": counts,
+                 "seconds": time.perf_counter() - t_s}
     print(f"[{card}] (s4) denoise {IMG_SIZE}^2 sigma={SIGMA} K=256 mesh "
           f"data=4: PSNR {p_sh:.4f} dB (unsharded {p_un:.4f}); "
           f"{ms_sh / 1e3:.4f} s an image (unsharded, two-phase route "

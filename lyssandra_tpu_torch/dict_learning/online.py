@@ -37,12 +37,12 @@ import torch
 from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.config import OnlineDLConfig
 from lyssandra_tpu_torch.ops.dictionaries import init_dictionary
-from lyssandra_tpu_torch.parallel.collectives import (
-    broadcast,
-    gather_to,
-    slot_sum,
+from lyssandra_tpu_torch.parallel.collectives import slot_sum
+from lyssandra_tpu_torch.parallel.mesh import (
+    map_data,
+    mesh_device,
+    row_copies,
 )
-from lyssandra_tpu_torch.parallel.mesh import data_shards, mesh_device
 from lyssandra_tpu_torch.solvers.lasso import (
     _fista_body,
     feature_sign,
@@ -106,14 +106,13 @@ def _code_stats(D, Xb, lam, coder, fs_opts, code_blocks, mesh=None):
     if mesh is None:
         Gamma = _code_batch(D, Xb, lam, coder, fs_opts, code_blocks)
         return Gamma, Gamma @ Gamma.T, Xb @ Gamma.T
-    first = D.device
-    shards = data_shards(Xb, mesh)
-    Ds = broadcast(D, [x.device for x in shards])
-    G = [_code_batch(d, x, lam, coder, fs_opts, code_blocks)
-         for d, x in zip(Ds, shards)]
-    return (torch.cat(gather_to(G, first), dim=1),
-            slot_sum([g @ g.T for g in G], first),
-            slot_sum([x @ g.T for x, g in zip(shards, G)], first))
+    def stats(d, x):
+        g = _code_batch(d, x, lam, coder, fs_opts, code_blocks)
+        return g, g @ g.T, x @ g.T
+
+    G, GG, XG = zip(*map_data(stats, row_copies(D, mesh), Xb, mesh))
+    return (torch.cat(G, dim=1), slot_sum(GG, D.device),
+            slot_sum(XG, D.device))
 
 
 def _online_chunk(

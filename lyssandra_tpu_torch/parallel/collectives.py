@@ -13,9 +13,18 @@ from __future__ import annotations
 import torch
 
 
-def gather_to(parts, device) -> list[torch.Tensor]:
-    """The slots' tensors, each moved to ``device``, in slot order."""
-    return [t.to(device) for t in parts]
+def _moved(out, device):
+    """A tensor, or a (named) tuple of tensors, moved to ``device``."""
+    if isinstance(out, torch.Tensor):
+        return out.to(device)
+    moved = (_moved(t, device) for t in out)
+    return type(out)(*moved) if hasattr(out, "_fields") else tuple(moved)
+
+
+def gather_to(parts, device) -> list:
+    """The slots' outputs (tensors, or tuples of them), each moved to
+    ``device``, in slot order."""
+    return [_moved(t, device) for t in parts]
 
 
 def slot_max(parts, device) -> torch.Tensor:

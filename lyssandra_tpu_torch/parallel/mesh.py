@@ -235,6 +235,20 @@ def data_shards(X: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
                                                                  dim=-1))]
 
 
+def row_copies(D: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+    """D on each data row's first slot, one copy per distinct device."""
+    return broadcast(D, mesh.data_devices())
+
+
+def map_data(fn, Ds, X: torch.Tensor, mesh: Mesh) -> list:
+    """``fn(d, x)`` once per data row: ``x`` the row's shard of X's columns
+    (``data_shards``), ``d`` the row's copy of D (``row_copies``).  Every
+    row is dispatched before any result is moved; the outputs (tensors, or
+    tuples of them) come back on the first slot, in row order."""
+    return gather_to([fn(d, x) for d, x in zip(Ds, data_shards(X, mesh))],
+                     mesh.first)
+
+
 def ksvd_train_step(X, D, T: int = 8, exact: bool = False,
                     svd_iters: int = 3):
     """One K-SVD training step: Batch-OMP coding and the sequential atom
@@ -275,10 +289,9 @@ def sharded_ksvd_step(mesh: Mesh, T: int = 8, *, model_shard_atoms=False,
         if model_shard_atoms:
             Gamma = omp_model_sharded(D, X, T, mesh=mesh)
         else:
-            shards = data_shards(X, mesh)
-            Ds = broadcast(D, [x.device for x in shards])
-            parts = [greedy.batch_omp(d, x, T) for d, x in zip(Ds, shards)]
-            Gamma = torch.cat(gather_to(parts, first), dim=1)
+            Gamma = torch.cat(map_data(
+                lambda d, x: greedy.batch_omp(d, x, T), row_copies(D, mesh),
+                X, mesh), dim=1)
         D2, G2 = ksvd_atom_update(X, D, Gamma, exact=exact,
                                   svd_iters=svd_iters)
         return shard(D2, mesh, d_spec), shard(G2, mesh, g_spec)

@@ -79,7 +79,7 @@ def _select_and_fetch(r, Dl, offsets, K):
 
 def _omp_row(Dl, X, offsets, K, T, eps, eps_mode):
     """The pursuit of one data row: Dl its slots' atom blocks, X (p, N) its
-    patches on its first slot.  Returns (idx, gamma, err, nsel)."""
+    patches on its first slot.  Returns its GreedyResult."""
     p, N = X.shape
     dev, dt = X.device, X.dtype
     Xt = X.T
@@ -117,7 +117,7 @@ def _omp_row(Dl, X, offsets, K, T, eps, eps_mode):
         done = frozen | (err <= eps * eps) if eps_mode else frozen
     gamma = _solve_gamma(Linv, a0sel)
     valid = torch.arange(T, device=dev)[None, :] < nsel[:, None]
-    return idx, torch.where(valid, gamma, 0.0), err, nsel
+    return GreedyResult(idx, torch.where(valid, gamma, 0.0), err, nsel)
 
 
 def omp_model_sharded(D, X, T: int, eps: float | None = None, *,
@@ -141,6 +141,5 @@ def omp_model_sharded(D, X, T: int, eps: float | None = None, *,
     eps = 0.0 if eps is None else float(eps)
     rows = [_omp_row(list(Ds.shards[i]), x, offsets, K, T, eps, eps_mode)
             for i, x in enumerate(data_shards(X, mesh))]
-    res = GreedyResult(*(torch.cat(gather_to(f, first), dim=0)
-                         for f in zip(*rows)))
+    res = GreedyResult.concatenate(gather_to(rows, first))
     return res.dense(K) if dense else res

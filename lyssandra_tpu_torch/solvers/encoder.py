@@ -25,8 +25,11 @@ from typing import Any
 import torch
 
 from lyssandra_tpu_torch._device import resolve_device
-from lyssandra_tpu_torch.parallel.collectives import broadcast, gather_to
-from lyssandra_tpu_torch.parallel.mesh import data_shards, mesh_device
+from lyssandra_tpu_torch.parallel.mesh import (
+    map_data,
+    mesh_device,
+    row_copies,
+)
 from lyssandra_tpu_torch.solvers import greedy
 from lyssandra_tpu_torch.solvers.lasso import feature_sign, fista, lars
 from lyssandra_tpu_torch.solvers.llc import llc
@@ -116,19 +119,6 @@ class SparseEncoder:
     _TRACEABLE = ("bomp", "batch_omp", "omp", "group_omp", "nn_omp",
                   *_THRESHOLDING, "llc", "fista")
 
-    def _mesh_call(self, solver, kw, Ds, Xb):
-        """One block over the mesh's data slots: the solver once per slot
-        (every slot dispatched before any result is read), the results
-        concatenated on the first slot in slot order.  Ds: D on each data
-        slot's device."""
-        first = self.mesh.first
-        outs = [solver(d, x, **kw)
-                for d, x in zip(Ds, data_shards(Xb, self.mesh))]
-        if kw.get("dense", True):
-            return torch.cat(gather_to(outs, first), dim=1)
-        return greedy.GreedyResult(*(torch.cat(gather_to(f, first), dim=0)
-                                     for f in zip(*outs)))
-
     # greedy routes whose solvers return a compact GreedyResult when asked
     # (group_omp's compact slots are T * group_size wide)
     _COMPACT = ("bomp", "batch_omp", "omp", "nn_omp", "group_omp")
@@ -161,10 +151,15 @@ class SparseEncoder:
         if not dense:
             kw["dense"] = False
         if self.mesh is not None and self.algorithm in self._TRACEABLE:
-            Ds = broadcast(D, self.mesh.data_devices())
+            # each block over the data slots, the pieces joined on the
+            # first slot in slot order
+            Ds = row_copies(D, self.mesh)
 
             def call(Xb):
-                return self._mesh_call(solver, kw, Ds, Xb)
+                outs = map_data(lambda d, x: solver(d, x, **kw), Ds, Xb,
+                                self.mesh)
+                return (torch.cat(outs, dim=1) if dense
+                        else greedy.GreedyResult.concatenate(outs))
         else:
             def call(Xb):
                 return solver(D, Xb, **kw)

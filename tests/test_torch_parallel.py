@@ -50,6 +50,8 @@ from lyssandra_tpu_torch.parallel import (
     shard_patches,
     sharded_ksvd_step,
 )
+from lyssandra_tpu_torch.parallel.mesh import map_data, row_copies
+from lyssandra_tpu_torch.solvers.greedy import GreedyResult
 from tests.conftest import make_problem
 
 torch.set_num_threads(1)
@@ -248,6 +250,26 @@ def test_uneven_and_tiny_shards(rng):
     out = lt.SparseEncoder("bomp", {"T": 2}, mesh=mesh).encode(X, D)
     np.testing.assert_allclose(
         out.numpy(), lt.batch_omp(D, X, 2, device="cpu").numpy(), atol=1e-6)
+
+
+def test_map_data_rows_in_order(rng):
+    # one call per data row on its shard and its copy of D; tuple and
+    # GreedyResult outputs come back whole, in row order, on the first slot
+    D, X, _ = make_problem(rng, p=16, K=32, N=11, T=2, dtype=np.float32)
+    D, X = torch.from_numpy(D), torch.from_numpy(X)
+    mesh = _mesh(3)
+    Ds = row_copies(D, mesh)
+    assert len(Ds) == 3 and all(d is D for d in Ds)
+    outs = map_data(lambda d, x: (x, x.sum(dim=0)), Ds, X, mesh)
+    assert [x.shape[1] for x, _ in outs] == [4, 4, 3]
+    torch.testing.assert_close(torch.cat([x for x, _ in outs], dim=1), X)
+    torch.testing.assert_close(torch.cat([s for _, s in outs]), X.sum(dim=0))
+    res = map_data(lambda d, x: lt.batch_omp(d, x, 2, dense=False), Ds, X,
+                   mesh)
+    whole = GreedyResult.concatenate(res)
+    assert isinstance(res[0], GreedyResult)
+    torch.testing.assert_close(whole.dense(32),
+                               lt.batch_omp(D, X, 2), atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("spec", [(), (None, "data"), ("data",),

@@ -11,13 +11,13 @@ GPU on 'data') and on 4 slots, (s2) ``omp_model_sharded`` on 2x4 slots,
 ``KSVDLearner(mesh=)``, (s4) the sharded denoise, (s5) the sharded online
 fit, each held against the unsharded call on cuda:0 with path (s)'s
 tolerances.  Inputs and results lie on cuda:0; every other slot's shard
-is a peer copy.  Then it splits the time of the 4-slot bomp encode, with
-the slots on 4 GPUs and on cuda:0 alone, into the host's enqueue and the
-whole call (host clock, every GPU synchronized), for the encode and for
-its parts alone: the peer copies of X's shards, the K1 calls on shards
-already placed, and the copies of the results to cuda:0.  Prints each
-GPU's name and power limit, the path's lines, and as its last line one
-JSON object of the results.  Needs at least two GPUs, and raises without.
+is a peer copy.  Then it times the real 4-slot bomp encode, with the
+slots on 4 GPUs and on cuda:0 alone, and the unsharded encode: the whole
+call and the host's enqueue (host clock, every GPU synchronized), and one
+call traced with ``torch.profiler`` (each GPU's busy, kernel and copy
+time, the host's CUDA runtime calls).  Prints each GPU's name and power
+limit, the path's lines, and as its last line one JSON object of the
+results.  Needs at least two GPUs, and raises without.
 """
 
 import json
@@ -73,15 +73,23 @@ def main():
                                   noisy, gpus=gpus)
     print(f"path (s) on {n} GPUs: {time.perf_counter() - t0:.1f} s, "
           f"launches {launches}")
-    out["dispatch"] = {
-        name: dispatch_parts(torch, lt, Db, Xb, slot_devs, n)
+    out["profile"] = {
+        name: profile_encode(torch, lt, Db, Xb, slot_devs, n)
         for name, slot_devs in (
-            ("4 slots on cuda:0", [dev] * 4),
-            (f"4 slots on {min(n, 4)} GPUs", [gpus[i % n] for i in range(4)]))}
-    for name, parts in out["dispatch"].items():
-        print(f"[{card}] bomp encode N={Xb.shape[1]} on {name}, ms (whole "
-              f"call, enqueue): " + "; ".join(
-                  f"{k} {v[0]:.3f}, {v[1]:.3f}" for k, v in parts.items()))
+            ("unsharded", None), ("4 slots on cuda:0", [dev] * 4),
+            (f"4 slots on {min(n, 4)} GPUs",
+             [gpus[i % n] for i in range(4)]))}
+    for name, r in out["profile"].items():
+        print(f"[{card}] bomp encode N={Xb.shape[1]}, {name}: whole call "
+              f"{r['whole_ms']:.3f} ms, enqueue {r['enqueue_ms']:.3f} ms "
+              f"(host clock); traced: " + "; ".join(
+                  f"{g} busy {v.get('busy_ms', 0.0):.3f} ms, kernels "
+                  f"{v['kernel_ops']} {v['kernel_ms']:.3f} ms, copies "
+                  f"{v['copy_ops']} {v['copy_ms']:.3f} ms"
+                  for g, v in sorted(r["gpus"].items())) + "; runtime "
+              + ", ".join(f"{k} {c} {ms:.3f} ms" for k, (c, ms) in
+                          sorted(r["runtime"].items(),
+                                 key=lambda kv: -kv[1][1])[:4]))
     print(json.dumps({"gpus": cards, "mesh": out}))
 
 
@@ -106,34 +114,56 @@ def host_ms(torch, n, fn, reps=7):
     return statistics.median(whole), statistics.median(enqueue)
 
 
-def dispatch_parts(torch, lt, Db, Xb, slot_devs, n):
-    """The 4-slot bomp encode of Xb and its parts, timed by host_ms."""
-    from lyssandra_tpu_torch.parallel import make_mesh
-    from lyssandra_tpu_torch.parallel.collectives import broadcast
-    from lyssandra_tpu_torch.parallel.mesh import data_shards
+def profile_encode(torch, lt, Db, Xb, slot_devs, n):
+    """The bomp encode of Xb (T=8), the real ``SparseEncoder`` call: on a
+    4-slot mesh over ``slot_devs``, or unsharded for None.  Its (whole,
+    enqueue) by host_ms, then one warm call traced with ``torch.profiler``:
+    per GPU its busy time (the union of its kernel and copy intervals), its
+    kernel and copy time and operations, and the host's calls into the
+    CUDA runtime (count and ms by name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    mesh = make_mesh(data=4, devices=slot_devs)
+    from lyssandra_tpu_torch.parallel import make_mesh
+
+    mesh = None if slot_devs is None else make_mesh(data=4,
+                                                     devices=slot_devs)
     enc = lt.SparseEncoder("bomp", {"T": 8}, mesh=mesh)
-    single = lt.SparseEncoder("bomp", {"T": 8})
-    blocks = [Xb[:, b:b + enc.block] for b in range(0, Xb.shape[1],
-                                                     enc.block)]
-    Ds = broadcast(Db, mesh.data_devices())
-    placed = [data_shards(x, mesh) for x in blocks]
-    res = [lt.batch_omp(d, x, 8, dense=False)
-           for xs in placed for d, x in zip(Ds, xs)]
-    first = mesh.first
-    return {
-        "encode": host_ms(torch, n, lambda: enc.encode(Xb, Db, dense=False)),
-        "unsharded encode": host_ms(torch, n, lambda: single.encode(
-            Xb, Db, dense=False)),
-        "shard copies": host_ms(torch, n, lambda: [
-            data_shards(x, mesh) for x in blocks]),
-        "K1 calls": host_ms(torch, n, lambda: [
-            lt.batch_omp(d, x, 8, dense=False)
-            for xs in placed for d, x in zip(Ds, xs)]),
-        "result copies": host_ms(torch, n, lambda: [
-            [f.to(first) for f in r] for r in res]),
-    }
+
+    def call():
+        return enc.encode(Xb, Db, dense=False)
+
+    whole, enqueue = host_ms(torch, n, call)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        for i in range(n):
+            torch.cuda.synchronize(i)
+    spans, gpus, runtime = {}, {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kind = "copy" if "memcpy" in e.name.lower() else "kernel"
+            g = gpus.setdefault(f"cuda:{e.device_index}", {
+                "kernel_ms": 0.0, "kernel_ops": 0, "copy_ms": 0.0,
+                "copy_ops": 0})
+            g[f"{kind}_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+            g[f"{kind}_ops"] += 1
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+        elif e.name.startswith("cuda"):
+            r = runtime.setdefault(e.name, [0, 0.0])
+            r[0] += 1
+            r[1] += e.cpu_time_total / 1e3
+    for i, sp in spans.items():
+        busy, last = 0.0, None
+        for a, b in sorted(sp):
+            if last is None or a > last:
+                busy, last = busy + b - a, b
+            elif b > last:
+                busy, last = busy + b - last, b
+        gpus[f"cuda:{i}"]["busy_ms"] = busy / 1e3
+    return {"whole_ms": whole, "enqueue_ms": enqueue, "gpus": gpus,
+            "runtime": runtime}
 
 
 if __name__ == "__main__":

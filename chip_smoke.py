@@ -5,7 +5,8 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. require a CUDA device; print its name and power limit (nvidia-smi);
-  2. build the CUDA kernels from csrc/ and print the build time;
+  2. build the CUDA kernels from csrc/ and print the build time and
+     ptxas's registers, shared memory and spills;
   3. K1 (fixed-T fused OMP, in the Gram form) against its plain version,
      the residual form: a well-posed problem (p=64, K=1024, T=8, N=32768:
      idx and nsel equal, gamma within 1e-4), lanes that freeze on a
@@ -220,9 +221,11 @@ Phases, in order; any failure raises and exits non-zero:
      262,144 Batch-OMP lanes with make_mesh() (1x1 here) and 4 slots, idx,
      gamma and nsel equal to the unsharded call on every lane, times in
      turns (CUDA events), host syncs a call (sync debug mode); (s2)
-     omp_model_sharded at K=16,384 (above K1's cap), N=8,192 on 2x4 slots
-     against the replicated omp: idx equal on >= 99.9% of lanes, gamma
-     within 1e-4 there, eps mode nsel equal, time and host syncs; (s3)
+     omp_model_sharded at K=16,384 (above the Gram-form K1's cap), N=8,192
+     on 2x4 slots against the replicated omp, which launches the
+     residual-form kernel once a call (K1-L; K2-L in eps mode): idx equal
+     on >= 99.9% of lanes, gamma within 1e-4 there, eps mode nsel equal,
+     time and host syncs; (s3)
      sharded_ksvd_step (4 slots) against ksvd_train_step on config 2's
      50,000 patches (K=512, T=8), model_shard_atoms on 2x2 slots on
      well-posed signals of those widths, KSVDLearner(mesh=) at
@@ -236,8 +239,30 @@ Phases, in order; any failure raises and exits non-zero:
      OnlineDictionaryLearner(mesh=).fit at config 4's widths, 2 minibatches
      of 4,096 on 4 slots, D within 2e-3 of the unsharded fit; each line
      beside the card's name and power limit, and each sub-path's seconds;
+ 12. after phase 11, K1/K2 above the Gram form's shared-memory cap
+     (csrc/omp_residual.cu, the residual form; K1-L and K2-L): (t) the
+     kernel at p=64, K=16,384, T=8 on 32,768 Gaussian signals (K1-L; K2-L
+     at eps=0.3 with half the signals scaled by 0.05) and on planted
+     8-sparse ones (eps=0.05) against its plain version: idx and nsel
+     equal on >= 99.9% of the Gaussian lanes and on every planted one,
+     |dgamma| <= 1e-4 and err within rtol 1e-4 there; its time, the plain
+     version's, the bound (2 p K flops a lane and step), D's bytes
+     streamed from L2, one launch a call, the kernel's shared memory
+     against the wrapper's formula, blocks of 8 and 4 lanes (p=512, T=48
+     and p=64, T=100; planted signals in eps mode equal on every lane,
+     p=512 in T-mode on >= 99%); then batch_omp (T-mode) and omp
+     (eps mode) at 256 signals on a grid of p in (64, 512), K in (1,024,
+     12,304, 12,305, 16,384, 65,536), T in (8, 32): the launch counts
+     name the route, the Gram form wherever cuda_omp.kernel_supports
+     holds, else the residual form, never the plain route; (n2) SRC (T=10)
+     fit and predict on digits_problem(n=24,000) (16,800 training atoms,
+     7,200 test images): one K1-L launch a predict, accuracy within 0.02
+     of the same pipeline on the plain route, K1-L's lane agreement on
+     SRC's coding printed (the stand-in's atoms are coherent), fit and
+     predict seconds;
 then one JSON line of the results of paths (i)-(k), one of paths (l)-(n),
-one of paths (o)-(r), one of path (s), one JSON line of
+one of paths (o)-(r), one of path (s), one of paths (t) and (n2), one JSON
+line of
 per-kernel results (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate
 of their type, counted from this run's data for the cheapest form of the
@@ -301,8 +326,19 @@ RUN_ENC_N, RUN_LARS_N, RUN_LARS_LAM, RUN_KSVD_ITERS = 50000, 4096, 50.0, 2
 # the runner's online_dl (one chunk of two minibatches, lam=50 on
 # pixel-scale patches) and inpaint (the runner's default 256^2 image)
 RUN_ODL_N, RUN_INP_SIZE = 4096, 256
-# path (s2): atom-sharded OMP above K1's K cap of 12,304 (ROADMAP B1)
+# path (s2): atom-sharded OMP above the Gram-form K1's K cap of 12,304,
+# against the replicated omp through the residual-form K1-L
 MESH_K, MESH_N = 16384, 8192
+# paths (t) and (n2): K1/K2 above the Gram form's cap, the residual-form
+# kernel at p=64, K=16,384, T=8 on 32,768 signals (eps mode: half of them
+# scaled by 0.05), then a grid of (p, K, T) at 256 signals; SRC on
+# digits_problem(n=24,000): 16,800 training atoms, 7,200 test images
+LK_P, LK_K, LK_T, LK_N = 64, 16384, 8, 32768
+LK_EPS, LK_EPS_PLANTED = 0.3, 0.05
+LK_GRID_P, LK_GRID_K, LK_GRID_T = (64, 512), (1024, 12304, 12305, 16384,
+                                             65536), (8, 32)
+LK_GRID_N = 256
+SRC_LARGE_N = 24000
 # published H100 SXM peaks (NVIDIA's data sheet), for the bounds
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
@@ -553,20 +589,24 @@ def hold_lanes(torch, got, want, X):
     """A fused OMP result (idx, gamma, err, nsel) against its plain
     version, lane by lane: the share of lanes with equal nsel and equal
     picks within it; on those lanes the largest |dgamma| over ||x|| and
-    |derr| over ||x||^2; on the other lanes the largest |derr| over
-    ||x||^2."""
+    |derr| over ||x||^2, and the largest |dgamma| and |derr| over err;
+    on the other lanes the largest |derr| over ||x||^2."""
     T = got[0].shape[1]
     keep = torch.arange(T, device=X.device)[None, :] < want[3][:, None]
     same = (got[3] == want[3]) & ((got[0] == want[0]) | ~keep).all(dim=1)
     xx = (X.double() ** 2).sum(dim=0).clamp_min(1e-12)
-    dg = (got[1] - want[1]).double().abs().amax(dim=1) / xx.sqrt()
-    de = (got[2] - want[2]).double().abs() / xx
+    dga = (got[1] - want[1]).double().abs().amax(dim=1)
+    dea = (got[2] - want[2]).double().abs()
+    dg, de = dga / xx.sqrt(), dea / xx
 
     def most(v, where):
         return float(v[where].max()) if bool(where.any()) else 0.0
 
     return {"agree": float(same.double().mean()),
             "gamma_rel": most(dg, same), "err_rel": most(de, same),
+            "gamma_abs": most(dga, same),
+            "err_rtol": most(dea / want[2].double().abs().clamp_min(1e-30),
+                             same),
             "lanes_differ": int((~same).sum()),
             "differ_err_rel": most(de, ~same)}
 
@@ -1883,7 +1923,7 @@ def mesh_paths(torch, lt, dev, card, Db, Xb, Dd, img_d, noisy, gpus=None):
         ksvd_train_step, make_mesh, omp_model_sharded, sharded_ksvd_step,
     )
     from lyssandra_tpu_torch.parallel.mesh import data_shards, row_copies
-    from lyssandra_tpu_torch.solvers.greedy import _fused_supported
+    from lyssandra_tpu_torch.solvers.greedy import _route_of
     from lyssandra_tpu_torch.utils.datasets import (
         patch_dataset, standard_test_image,
     )
@@ -1953,18 +1993,23 @@ def mesh_paths(torch, lt, dev, card, Db, Xb, Dd, img_d, noisy, gpus=None):
     out["s1"] = s1
     out["s1_seconds"] = time.perf_counter() - t_s
 
-    # --- (s2) atom-sharded OMP above K1's K cap (ROADMAP B1)
+    # --- (s2) atom-sharded OMP above the Gram form's K cap, against the
+    # replicated omp, which takes the residual-form kernel (K1-L) there
     t_s = time.perf_counter()
     Kb, Nb = MESH_K, MESH_N
     rng = np.random.default_rng(11)
     D2, X2 = make_problem(rng, P, Kb, Nb, T)
     D2, X2 = torch.as_tensor(D2, device=dev), torch.as_tensor(X2, device=dev)
-    check(not _fused_supported(D2, X2, T),
-          f"(s2) K={Kb} must lie above K1's envelope")
+    check(_route_of(D2, X2, T) == "residual",
+          f"(s2) K={Kb} must take the residual-form kernel")
     mesh = slots(2, 4)
     (res, counts) = counted(lambda: omp_model_sharded(
         D2, X2, T, mesh=mesh, dense=False))
-    ref = lt.omp(D2, X2, T, dense=False)
+    (ref, counts_rep) = counted(lambda: lt.omp(D2, X2, T, dense=False))
+    check(counts_rep["omp_residual_t"] == 1
+          and sum(counts_rep.values()) == 1,
+          f"(s2) the replicated omp: one K1-L launch expected, got "
+          f"{counts_rep}")
     same = (res.idx == ref.idx).all(dim=1) & (res.nsel == ref.nsel)
     agree = float(same.double().mean())
     dg = float((res.gamma - ref.gamma)[same].abs().max())
@@ -1979,7 +2024,12 @@ def mesh_paths(torch, lt, dev, card, Db, Xb, Dd, img_d, noisy, gpus=None):
     Xe[:, ::2] *= 0.05
     eps = 0.3
     re = omp_model_sharded(D2, Xe, T, eps=eps, mesh=mesh, dense=False)
-    rr = lt.omp(D2, Xe, T, eps=eps, dense=False)
+    (rr, counts_eps) = counted(lambda: lt.omp(D2, Xe, T, eps=eps,
+                                              dense=False))
+    check(counts_eps["omp_residual_eps"] == 1
+          and sum(counts_eps.values()) == 1,
+          f"(s2) the replicated omp, eps mode: one K2-L launch expected, got "
+          f"{counts_eps}")
     nsel_eq = float((re.nsel == rr.nsel).double().mean())
     _, syncs_eps = count_syncs(torch, lambda: omp_model_sharded(
         D2, Xe, T, eps=eps, mesh=mesh, dense=False))
@@ -1989,12 +2039,14 @@ def mesh_paths(torch, lt, dev, card, Db, Xb, Dd, img_d, noisy, gpus=None):
                  "host_syncs": syncs, "eps_nsel_equal": nsel_eq,
                  "eps_mean_nsel": float(re.nsel.double().mean()),
                  "eps_host_syncs": syncs_eps, "launches": counts,
+                 "replicated_launches": counts_rep,
+                 "replicated_eps_launches": counts_eps,
                  "seconds": time.perf_counter() - t_s}
     print(f"[{card}] (s2) omp_model_sharded p={P} K={Kb} T={T} N={Nb} mesh "
           f"{mesh.shape}: idx equal on {agree:.6f} of the lanes, gamma "
           f"within {dg:.2e} there; {ms_sh:.3f} ms ({Nb / ms_sh * 1e3:.1f} "
-          f"patches/s), replicated omp {ms_rep:.3f} ms; host syncs a call "
-          f"{syncs}; eps={eps}: nsel equal on {nsel_eq:.6f}, mean nsel "
+          f"patches/s), replicated omp (K1-L) {ms_rep:.3f} ms; host syncs "
+          f"a call {syncs}; eps={eps}: nsel equal on {nsel_eq:.6f}, mean nsel "
           f"{out['s2']['eps_mean_nsel']:.3f}, host syncs {syncs_eps}")
     del D2, X2, Xe, res, ref, re, rr
 
@@ -2139,6 +2191,281 @@ def mesh_paths(torch, lt, dev, card, Db, Xb, Dd, img_d, noisy, gpus=None):
         f"{k} {out[k]['seconds'] if k != 's1' else out['s1_seconds']:.1f}"
         for k in ("s1", "s2", "s3", "s4", "s5")))
     return launches, out
+
+
+def planted_problem(rng, p, K, N, s):
+    """Unit-norm Gaussian dictionary and signals that are noisy s-sparse
+    combinations of its atoms, as make_problem makes them, without the
+    dense (K, N) code matrix (make_problem's would be 4 GB at path (t)'s
+    shape)."""
+    D = rng.standard_normal((p, K))
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    idx = np.stack([rng.choice(K, s, replace=False) for _ in range(N)])
+    X = np.einsum("pnt,nt->pn", D[:, idx], rng.standard_normal((N, s)))
+    X += 0.01 * rng.standard_normal((p, N))
+    return D.astype(np.float32), X.astype(np.float32)
+
+
+def ptxas_registers(log, kernel):
+    """Registers per thread of each compiled instance of `kernel`, from the
+    build's `-Xptxas -v` lines, by mangled name."""
+    regs, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
+
+
+def large_k_paths(torch, lt, dev, card):
+    """Paths (t) and (n2): K1/K2 above the Gram form's shared-memory cap,
+    through the residual-form kernel (csrc/omp_residual.cu).  (t) the
+    kernel at p=64, K=16,384, T=8, N=32,768 against its plain version on
+    Gaussian and planted signals in both modes, timed, then a grid of
+    (p, K, T) through batch_omp and omp whose launch counts name the route;
+    (n2) SRC with 16,800 training samples.  Returns (the launches of the
+    grid, those of (n2), one JSON-able dict of results, the K1-L and K2-L
+    rows' numbers)."""
+    from lyssandra_tpu_torch import _build
+    from lyssandra_tpu_torch.ops import cuda_omp
+    from lyssandra_tpu_torch.ops.cuda_omp import (
+        kernel_supports, omp_fused_reference, omp_residual_fused,
+        residual_block_lanes, residual_block_smem_bytes,
+    )
+    from lyssandra_tpu_torch.solvers.greedy import omp_route
+
+    out, rows = {}, {}
+    t_s = time.perf_counter()
+    p, K_, T_, N = LK_P, LK_K, LK_T, LK_N
+    rng = np.random.default_rng(21)
+    Dg = rng.standard_normal((p, K_))
+    Dg /= np.linalg.norm(Dg, axis=0, keepdims=True)
+    Dg = torch.as_tensor(Dg.astype(np.float32), device=dev)
+    Xg = torch.as_tensor(rng.standard_normal((p, N)).astype(np.float32),
+                         device=dev)
+    Xge = Xg.clone()
+    Xge[:, ::2] *= 0.05                    # half the lanes exit early
+    Dp, Xp = (torch.as_tensor(a, device=dev)
+              for a in planted_problem(rng, p, K_, N, T_))
+    Xpe = Xp.clone()
+    Xpe[:, ::2] *= 0.05
+    lanes = residual_block_lanes(p, T_)
+    cases = (("K1-L", "gaussian", Dg, Xg, {"T": T_}),
+             ("K2-L", "gaussian", Dg, Xge, {"T": T_, "eps": LK_EPS,
+                                            "eps_mode": True}),
+             ("K1-L", "planted", Dp, Xp, {"T": T_}),
+             ("K2-L", "planted", Dp, Xpe, {"T": T_, "eps": LK_EPS_PLANTED,
+                                           "eps_mode": True}))
+    held = {}
+    for name, data, D, X, kw in cases:
+        got = omp_residual_fused(D, X, **kw)
+        want = omp_fused_reference(D, X, **kw)
+        h = hold_lanes(torch, got, want, X)
+        h["mean_nsel"] = float(got[3].double().mean())
+        h["max_abs_err"] = float((got[1] - want[1]).abs().max())
+        held[f"{name} {data}"] = h
+        print(f"[{card}] (t) {name} {data} p={p} K={K_} T={T_} N={N} "
+              f"{kw.get('eps', '')}: idx and nsel equal on "
+              f"{h['agree']:.6f} of lanes; there max |dgamma| "
+              f"{h['gamma_abs']:.3g}, |derr|/err {h['err_rtol']:.3g}; mean "
+              f"nsel {h['mean_nsel']:.3f}")
+        need = 1.0 if data == "planted" else 0.999
+        check(h["agree"] >= need and h["gamma_abs"] <= 1e-4
+              and h["err_rtol"] <= 1e-4,
+              f"(t) {name} on {data} signals against its plain version: {h}")
+        if data == "gaussian":
+            # the least time: X and D read once, the outputs written once;
+            # the selection product over the steps the lanes ran, 2 p K
+            # flops a lane and step (the rest is O(p T^2) a lane)
+            steps = float(got[3].double().sum())
+            frozen = int((got[3] < T_).sum()) if "eps" not in kw else 0
+            bnd = bound_ms(4 * (p * N + p * K_ + 2 * N * T_ + 2 * N),
+                           2 * p * K_ * steps, PEAK_F32)
+            ms = cuda_ms(torch, lambda: omp_residual_fused(D, X, **kw))
+            plain = cuda_ms(torch, lambda: omp_fused_reference(D, X, **kw))
+            # D streams through each block's shared memory once a step the
+            # block runs: until its lanes are all done or frozen
+            nb = -(-N // lanes)
+            ran = torch.nn.functional.pad(
+                got[3], (0, nb * lanes - N)).view(nb, lanes).amax(dim=1)
+            if "eps" not in kw:
+                ran = torch.full_like(ran, T_)
+            d_bytes = 4.0 * p * K_ * float(ran.double().sum())
+            rows[name] = {
+                "max_abs_err": h["max_abs_err"], "ms": ms, "plain_ms": plain,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "lanes_per_block":
+                lanes, "mean_nsel": h["mean_nsel"], "lanes_frozen": frozen,
+                "d_bytes_streamed": d_bytes,
+                "d_stream_tb_per_s": d_bytes / (ms * 1e-3) / 1e12,
+                "tflop_per_s": 2 * p * K_ * steps / (ms * 1e-3) / 1e12}
+            print(f"[{card}] (t) {name} p={p} K={K_} T={T_} N={N}: kernel "
+                  f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]}, {bnd[0] / ms:.3f} of the kernel's time); "
+                  f"{lanes} lanes a block; D streamed "
+                  f"{d_bytes / 1e9:.2f} GB ({d_bytes / (ms * 1e-3) / 1e12:.2f}"
+                  f" TB/s), {rows[name]['tflop_per_s']:.2f} TFLOP/s")
+    # the kernel's shared memory against the wrapper's formula
+    lib = _build.load()
+    for sp, st in ((p, T_), (p, SRC_T), (512, 32), (21, 3), (64, 100)):
+        sl = residual_block_lanes(sp, st)
+        check(lib.lyssa_omp_residual_smem_bytes(sp, st, sl)
+              == residual_block_smem_bytes(sp, st, sl),
+              f"(t) K1-L shared memory at p={sp}, T={st}, {sl} lanes: the "
+              f"kernel and residual_block_smem_bytes disagree")
+    # blocks of 8 and 4 lanes, where the state of 16 does not fit: planted
+    # 4-sparse signals that reach eps in a few steps (equal on every lane),
+    # and 48 steps at p=512 (noise-level picks: >= 99% of lanes)
+    lane_cases = []
+    for sp, st, modes in ((512, 48, ("eps", "T")), (64, 100, ("eps",))):
+        Dv, Xv = (torch.as_tensor(a, device=dev) for a in planted_problem(
+            np.random.default_rng(sp + st), sp, 13000, 200, 4))
+        Xv[:, ::2] *= 0.05
+        for mode in modes:
+            kw = ({"T": st, "eps": LK_EPS, "eps_mode": True} if mode == "eps"
+                  else {"T": st})
+            h = hold_lanes(torch, omp_residual_fused(Dv, Xv, **kw),
+                           omp_fused_reference(Dv, Xv, **kw), Xv)
+            h.update(p=sp, T=st, mode=mode,
+                     lanes=residual_block_lanes(sp, st))
+            lane_cases.append(h)
+            print(f"[{card}] (t) K1-L/K2-L p={sp} K=13000 T={st} {mode} "
+                  f"mode, {h['lanes']} lanes a block: idx and nsel equal on "
+                  f"{h['agree']:.4f} of 200 lanes, max |dgamma| "
+                  f"{h['gamma_abs']:.3g} there")
+            check(h["agree"] >= (1.0 if mode == "eps" else 0.99)
+                  and h["gamma_abs"] <= 1e-4,
+                  f"(t) p={sp} T={st} {mode} mode: {h}")
+    # one launch a call, no product launch
+    lt.reset_launch_counts()
+    omp_residual_fused(Dg, Xg, T=T_)
+    per_call = lt.launch_counts()
+    check(per_call["omp_residual_t"] == 1 and sum(per_call.values()) == 1,
+          f"(t) one K1-L launch a call, got {per_call}")
+    out["t"] = {"held": held, "rows": rows, "lane_cases": lane_cases}
+    del Dg, Xg, Xge, Dp, Xp, Xpe, got, want
+
+    # --- the grid: which kernel each batch_omp / omp call takes
+    grid, launches_t = [], None
+    rng = np.random.default_rng(22)
+    for gp in LK_GRID_P:
+        for gk in LK_GRID_K:
+            D = rng.standard_normal((gp, gk)).astype(np.float32)
+            D /= np.linalg.norm(D, axis=0, keepdims=True)
+            D = torch.as_tensor(D, device=dev)
+            X = torch.as_tensor(rng.standard_normal(
+                (gp, LK_GRID_N)).astype(np.float32), device=dev)
+            Xe = X.clone()
+            Xe[:, ::2] *= 0.05
+            eps = LK_EPS * math.sqrt(gp / p)
+            for gt in LK_GRID_T:
+                route = "gram" if kernel_supports(gp, gk, gt) else "residual"
+                torch.cuda.synchronize()
+                lt.reset_launch_counts()
+                t0 = time.perf_counter()
+                rb = lt.batch_omp(D, X, gt, dense=False)
+                ro = lt.omp(D, Xe, gt, eps=eps, dense=False)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                counts = lt.launch_counts()
+                launches_t = counts if launches_t is None else {
+                    k: launches_t[k] + counts[k] for k in launches_t}
+                want = ({"omp_fused_t": 1, "omp_fused_eps": 1, "gram": 2}
+                        if route == "gram" else
+                        {"omp_residual_t": 1, "omp_residual_eps": 1})
+                check(counts == {k: want.get(k, 0) for k in counts},
+                      f"(t) grid p={gp} K={gk} T={gt}: route {route}, "
+                      f"launches {counts}")
+                hb = hold_lanes(torch, tuple(rb), omp_fused_reference(
+                    D, X, T=gt), X)
+                ho = hold_lanes(torch, tuple(ro), omp_fused_reference(
+                    D, Xe, T=gt, eps=eps, eps_mode=True), Xe)
+                check(all(bool(torch.isfinite(r.gamma).all())
+                          for r in (rb, ro)),
+                      f"(t) grid p={gp} K={gk} T={gt}: codes not finite")
+                if route == "residual":
+                    check(hb["agree"] >= 0.99 and ho["agree"] >= 0.99,
+                          f"(t) grid p={gp} K={gk} T={gt}: K1-L {hb}, "
+                          f"K2-L {ho}")
+                grid.append({"p": gp, "K": gk, "T": gt, "route": route,
+                             "launches": counts, "s": sec,
+                             "agree_t": hb["agree"], "agree_eps": ho["agree"],
+                             "mean_nsel_eps": float(ro.nsel.double().mean())})
+                print(f"[{card}] (t) grid p={gp} K={gk} T={gt} "
+                      f"N={LK_GRID_N}: {route} ({counts['omp_fused_t']} K1, "
+                      f"{counts['omp_fused_eps']} K2, "
+                      f"{counts['omp_residual_t']} K1-L, "
+                      f"{counts['omp_residual_eps']} K2-L, "
+                      f"{counts['gram']} gram); picks agree with the plain "
+                      f"version on {hb['agree']:.4f} (T-mode), "
+                      f"{ho['agree']:.4f} (eps={eps:.3f}); {sec:.3f} s")
+            del D, X, Xe
+    out["t_grid"] = grid
+    out["t_seconds"] = time.perf_counter() - t_s
+
+    # --- (n2) SRC above the cap: 16,800 training samples of the stand-in
+    t_s = time.perf_counter()
+    Xtr, ytr, Xte, yte = digits_problem(n=SRC_LARGE_N)
+    Xtr, Xte = torch.as_tensor(Xtr, device=dev), torch.as_tensor(Xte,
+                                                                 device=dev)
+    check(omp_route("cuda", Xtr.dtype, Xte.dtype, "f32", Xtr.shape[0],
+                    Xtr.shape[1], SRC_T) == "residual",
+          f"(n2) K={Xtr.shape[1]} must take K1-L")
+
+    def src_run():
+        r = {}
+        torch.cuda.synchronize()
+        lt.reset_launch_counts()
+        t0 = time.perf_counter()
+        src = lt.SRCClassifier(T=SRC_T).fit(Xtr, ytr)
+        torch.cuda.synchronize()
+        r["fit_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r["accuracy"] = src.score(Xte, yte)
+        r["predict_s"] = time.perf_counter() - t0
+        r["launches"] = lt.launch_counts()
+        return r, src
+
+    kernel, src = src_run()
+    check(kernel["launches"]["omp_residual_t"] == 1
+          and sum(kernel["launches"].values()) == 1,
+          f"(n2) SRC predict: one K1-L launch expected, got "
+          f"{kernel['launches']}")
+    predict_ms = cuda_ms(torch, lambda: src.predict(Xte), reps=3)
+    real = cuda_omp.omp_residual_fused
+    cuda_omp.omp_residual_fused = cuda_omp.omp_fused_reference
+    try:
+        plain, _ = src_run()
+        plain_predict_ms = cuda_ms(torch, lambda: src.predict(Xte), reps=3)
+    finally:
+        cuda_omp.omp_residual_fused = real
+    check(sum(plain["launches"].values()) == 0,
+          f"(n2) the plain route launched {plain['launches']}")
+    Xn = Xte / torch.linalg.norm(Xte, dim=0, keepdim=True).clamp_min(1e-12)
+    lanes_n2 = hold_lanes(torch, omp_residual_fused(src.D_, Xn, T=SRC_T),
+                          omp_fused_reference(src.D_, Xn, T=SRC_T), Xn)
+    print(f"[{card}] (n2) SRC T={SRC_T} on digits_problem(n={SRC_LARGE_N}): "
+          f"{Xtr.shape[1]} training atoms, {Xte.shape[1]} test images; fit "
+          f"{kernel['fit_s']:.4f} s, predict {kernel['predict_s']:.4f} s "
+          f"(warm {predict_ms:.3f} ms; plain route {plain_predict_ms:.3f} "
+          f"ms), accuracy {kernel['accuracy']:.4f} (plain route "
+          f"{plain['accuracy']:.4f}); K1-L against its plain version on "
+          f"SRC's coding: {lanes_n2['agree']:.6f} of lanes agree (not "
+          f"gated: the stand-in's atoms are coherent); launches "
+          f"{kernel['launches']}")
+    check(abs(kernel["accuracy"] - plain["accuracy"]) <= 0.02,
+          f"(n2) SRC accuracy {kernel['accuracy']} against {plain['accuracy']}"
+          f" on the plain route")
+    out["n2"] = {"n_train": Xtr.shape[1], "n_test": Xte.shape[1],
+                 "T": SRC_T, "kernel": kernel, "plain": plain,
+                 "predict_ms": predict_ms, "plain_predict_ms":
+                 plain_predict_ms, "k1l_lanes": lanes_n2,
+                 "seconds": time.perf_counter() - t_s}
+    del Xtr, Xte, Xn, src
+    return launches_t, kernel["launches"], out, rows
 
 
 def main():
@@ -3208,10 +3535,15 @@ def main():
     # --- 11. the device mesh
     launches_s, mesh_out = mesh_paths(torch, lt, dev, card, Db, Xb, Dd,
                                       img_d, noisy)
+    # --- 12. K1/K2 above the Gram form's cap, SRC on 16,800 atoms
+    launches_t, launches_n2, large_k_out, lk = large_k_paths(torch, lt, dev,
+                                                             card)
+    lk_regs = ptxas_registers(log, "omp_residual_kernel")
     paths = (launches, launches_g, launches_b, launches_d, launches_e,
              launches_f, launches_inp, launches_h, launches_i, launches_j,
              launches_k, launches_l, launches_m, launches_n, launches_o,
-             launches_p, launches_q, launches_r, launches_s)
+             launches_p, launches_q, launches_r, launches_s, launches_t,
+             launches_n2)
     for name in launches:
         total = sum(counts[name] for counts in paths)
         check(total > 0, f"kernel {name} not launched on any main path")
@@ -3278,6 +3610,19 @@ def main():
          "bf16_library_graph_ms": k7_bf16_lib_graph_ms,
          "bf16_max_abs_err": k7_err_bf16, "bf16_bound_ms": k7_bound_bf16[0],
          "bf16_bound_by": k7_bound_bf16[1]},
+        # the residual form above the Gram form's cap: times at p=64,
+        # K=16,384, T=8, N=32,768 (path (t)); launches on the grid of (t),
+        # the replicated omp of (s2) and SRC's predict (n2)
+        *({"name": f"omp_residual ({what})", "route": "cuda",
+           "source": "lyssandra_tpu_torch/csrc/omp_residual.cu",
+           "replaces": f"lyssandra_tpu/ops/pallas_omp.py:{line}",
+           "launches": launches_t[key] + launches_s[key] + launches_n2[key],
+           "library_ms": None,
+           "registers": {k: v for k, v in lk_regs.items() if tag in k},
+           **lk[row]}
+          for what, line, key, row, tag in (
+              ("fixed T", 79, "omp_residual_t", "K1-L", "Lb0E"),
+              ("eps exit", 235, "omp_residual_eps", "K2-L", "Lb1E"))),
         # times at K4's alpha0 shape (a group-encoder block); by_shape has
         # every main-path shape
         {"name": "gram", "route": "cuda",
@@ -3303,6 +3648,7 @@ def main():
     print(json.dumps({"lars": lars_out, **feature_out, "runner": runner_out},
                      default=str))
     print(json.dumps({"mesh": mesh_out}))
+    print(json.dumps({"large_k": large_k_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,10 @@ _SIGNATURES = {
     # nsel, stream
     "lyssa_omp_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P,
                         _P, _P, _P],
+    # X, D, Dt, p, K, N, T, eps2, eps_mode, lanes, idx, gamma, err, nsel,
+    # stream
+    "lyssa_omp_residual": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P,
+                           _P, _P],
     # X, Dp, A0, Gp, p, ng, gs, N, T, warps, gamma, gidx, err, nsel, stream
     "lyssa_group_omp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                         _P, _P],
@@ -150,6 +154,8 @@ def load() -> ctypes.CDLL:
     lib.lyssa_select_smem_bytes.restype = ctypes.c_size_t
     lib.lyssa_omp_fused_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.lyssa_omp_fused_smem_bytes.restype = ctypes.c_size_t
+    lib.lyssa_omp_residual_smem_bytes.argtypes = [_I, _I, _I]
+    lib.lyssa_omp_residual_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 

@@ -3,9 +3,10 @@
 training samples; a test sample is coded over it and given the class with
 the smallest class-restricted residual ||x - D delta_c(gamma)||_2.
 
-All test samples are coded in one encoder call (``omp``: on a GPU the
-fused OMP kernel, ``ops/cuda_omp.py``, with K = the training-set size),
-and the C class residuals are C masked reconstructions.
+All test samples are coded in one encoder call (``omp``: on a GPU a
+fused OMP kernel of ``ops/cuda_omp.py``, with K = the training-set size:
+the Gram form up to its cap on K, the residual form above it), and the C
+class residuals are C masked reconstructions.
 """
 
 from __future__ import annotations

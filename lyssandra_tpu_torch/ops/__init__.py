@@ -1,7 +1,7 @@
 from lyssandra_tpu_torch.ops.cuda_fs import fs_cold_fused
 from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.ops.cuda_group import group_omp_fused
-from lyssandra_tpu_torch.ops.cuda_omp import omp_fused
+from lyssandra_tpu_torch.ops.cuda_omp import omp_fused, omp_residual_fused
 from lyssandra_tpu_torch.ops.cuda_patches import (
     fused_patch_pipeline,
     fused_patch_pipeline_p1,
@@ -31,6 +31,8 @@ def launch_counts() -> dict[str, int]:
     return {
         "omp_fused_t": omp_fused.launches_t,
         "omp_fused_eps": omp_fused.launches_eps,
+        "omp_residual_t": omp_residual_fused.launches_t,
+        "omp_residual_eps": omp_residual_fused.launches_eps,
         "fused_patches": fused_patch_pipeline_p1.launches,
         "group_omp_fused": group_omp_fused.launches,
         "fs_cold": fs_cold_fused.launches,
@@ -42,6 +44,8 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     omp_fused.launches_t = 0
     omp_fused.launches_eps = 0
+    omp_residual_fused.launches_t = 0
+    omp_residual_fused.launches_eps = 0
     fused_patch_pipeline_p1.launches = 0
     group_omp_fused.launches = 0
     fs_cold_fused.launches = 0

@@ -289,27 +289,61 @@ def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32",
     return GreedyResult(idx, torch.where(valid, gamma, 0.0), err, nsel)
 
 
+# the reference's gate: its fused kernel takes p <= 512 at any K
+# (lyssandra_tpu/solvers/greedy.py::_fused_supported)
+_FUSED_MAX_P = 512
+
+
+def omp_route(device_type: str, D_dtype: torch.dtype, X_dtype: torch.dtype,
+              corr_dtype: str, p: int, K: int, T: int) -> str:
+    """Which fused OMP solve takes a call, from what the call is:
+
+    'gram'     — ``cuda_omp.omp_fused`` (K1/K2 in the Gram form) wherever
+                 its block state fits shared memory;
+    'residual' — ``cuda_omp.omp_residual_fused`` (the residual form, no
+                 state that grows with K) elsewhere at p <= 512, the
+                 reference's own gate, where its state fits;
+    'plain'    — no kernel: tensors off the GPU, types other than float32,
+                 ``corr_dtype='bf16'`` (neither kernel has a bf16
+                 selection, as the reference's has none), or p > 512 with K
+                 above the Gram form's cap, where the reference leaves its
+                 kernel too.
+    """
+    from lyssandra_tpu_torch.ops import cuda_omp
+
+    if (device_type != "cuda" or D_dtype != torch.float32
+            or X_dtype != torch.float32 or corr_dtype != "f32"):
+        return "plain"
+    if cuda_omp.kernel_supports(p, K, T):
+        return "gram"
+    if p <= _FUSED_MAX_P and cuda_omp.residual_kernel_supports(p, K, T):
+        return "residual"
+    return "plain"
+
+
+def _route_of(D: torch.Tensor, X: torch.Tensor, T: int,
+              corr_dtype: str = "f32") -> str:
+    """``omp_route`` of a call on (D, X)."""
+    p, K = D.shape
+    return omp_route("cuda" if X.is_cuda and D.is_cuda else "cpu", D.dtype,
+                     X.dtype, corr_dtype, p, K, T)
+
+
 def _fused_supported(D: torch.Tensor, X: torch.Tensor, T: int,
                      corr_dtype: str = "f32") -> bool:
-    """The fused kernel takes the call: CUDA tensors, float32, float32
-    selection products (the kernel has no bf16 selection, as the
-    reference's has none) and a shape inside the kernel's envelope."""
-    from lyssandra_tpu_torch.ops.cuda_omp import kernel_supports
-
-    return (
-        X.is_cuda and D.is_cuda
-        and D.dtype == torch.float32 and X.dtype == torch.float32
-        and corr_dtype == "f32"
-        and kernel_supports(D.shape[0], D.shape[1], T)
-    )
+    """A fused kernel takes the call (``omp_route`` is not 'plain')."""
+    return _route_of(D, X, T, corr_dtype) != "plain"
 
 
 def _omp_fused_call(D, X, *, T, eps, eps_mode, dense):
-    """The fused solve (ops/cuda_omp.omp_fused): the CUDA kernel for GPU
-    tensors, its plain version for CPU tensors."""
-    from lyssandra_tpu_torch.ops.cuda_omp import omp_fused
+    """The fused solve: the kernel ``omp_route`` names for GPU tensors
+    (``cuda_omp.omp_fused`` or ``omp_residual_fused``), the plain version
+    for CPU tensors."""
+    from lyssandra_tpu_torch.ops import cuda_omp
 
-    res = GreedyResult(*omp_fused(D, X, T=T, eps=eps, eps_mode=eps_mode))
+    fn = (cuda_omp.omp_residual_fused if _route_of(D, X, T) == "residual"
+          else cuda_omp.omp_fused)
+    res = GreedyResult(*fn(D, X, T=T, eps=eps, eps_mode=eps_mode))
     return res.dense(D.shape[1]) if dense else res
 
 

@@ -116,10 +116,11 @@ def test_denoiser_mesh_not_ported():
 
 
 def test_fast_path_follows_the_kernel_envelope(rng, monkeypatch):
-    # On the GPU the two-phase coder is taken only where the fused kernel
-    # takes the shape; elsewhere the blocked Batch-OMP path codes the
-    # patches.  A CPU dictionary posing as a CUDA one (Tensor.is_cuda) and
-    # a stand-in envelope show the routing without a GPU.
+    # On the GPU the two-phase coder is taken only where a fused kernel
+    # (the Gram form, or above its cap the residual form) takes the shape;
+    # elsewhere the blocked Batch-OMP path codes the patches.  A CPU
+    # dictionary posing as a CUDA one (Tensor.is_cuda) and stand-in
+    # envelopes show the routing without a GPU.
     from lyssandra_tpu_torch.ops import cuda_omp
     from lyssandra_tpu_torch.ops.cuda_patches import (
         fused_patch_pipeline_reference,
@@ -133,6 +134,8 @@ def test_fast_path_follows_the_kernel_envelope(rng, monkeypatch):
                         property(lambda self: True))
     monkeypatch.setattr(cuda_omp, "kernel_supports",
                         lambda *shape: asked.append(shape) or False)
+    monkeypatch.setattr(cuda_omp, "residual_kernel_supports",
+                        lambda *shape: False)
     assert not den._fast_path()
     assert asked and asked[-1][0] == 64 and asked[-1][-1] == 10
 
@@ -154,6 +157,11 @@ def test_fast_path_follows_the_kernel_envelope(rng, monkeypatch):
     den(noisy)
     assert [b[0] for b in blocks] == [200, 89]     # 289 patches of 8 x 8
     assert all(b[1] == 16 for b in blocks)
+    monkeypatch.setattr(cuda_omp, "residual_kernel_supports",
+                        lambda *shape: True)
+    assert den._fast_path()              # above the Gram form's cap
+    monkeypatch.setattr(cuda_omp, "residual_kernel_supports",
+                        lambda *shape: False)
     monkeypatch.setattr(cuda_omp, "kernel_supports", lambda *shape: True)
     assert den._fast_path()
 

@@ -216,15 +216,18 @@ def test_kernel_envelope():
                                          (768, 10, 11552)])
 def test_kernel_envelope_largest_k(monkeypatch, p, T, k_max):
     # alpha0 of every lane of a block lives in shared memory, so K has a
-    # cap; above it batch_omp on the card takes the residual-form
-    # _omp_impl instead of the kernel
+    # cap; above it batch_omp on the card takes the residual-form kernel
+    # where p <= 512 (the reference's gate), else the residual-form
+    # _omp_impl
     assert cuda_omp.kernel_supports(p, k_max, T)
     assert not cuda_omp.kernel_supports(p, k_max + 1, T)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     X = torch.empty((p, 4), device="meta")
-    for K, takes in ((k_max, True), (k_max + 1, False)):
+    above = "residual" if p <= 512 else "plain"
+    for K, route in ((k_max, "gram"), (k_max + 1, above)):
         D = torch.empty((p, K), device="meta")
-        assert greedy._fused_supported(D, X, T) is takes
+        assert greedy._route_of(D, X, T) == route
+        assert greedy._fused_supported(D, X, T) is (route != "plain")
 
 
 @pytest.mark.parametrize("eps_mode", [False, True])
@@ -278,7 +281,8 @@ def test_kernel_library_named_by_source_hash():
     # built only on first use, never at import: nothing here needs nvcc
     names = sorted(p.name for p in _build.sources())
     assert names == ["errors.cu", "fs_cold.cu", "fused_patches.cu",
-                     "gram.cu", "group_omp.cu", "omp_fused.cu", "select.cu"]
+                     "gram.cu", "group_omp.cu", "omp_fused.cu",
+                     "omp_residual.cu", "select.cu"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()

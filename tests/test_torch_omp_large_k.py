@@ -1,0 +1,253 @@
+"""K1/K2 above the Gram form's shared-memory cap: the route choice of
+``greedy.omp_route``, the residual-form kernel's wrapper
+(``cuda_omp.omp_residual_fused``) and its envelope, and ``batch_omp``/``omp``
+at a K above the cap against the reference's Pallas kernel in interpret
+mode and the fp64 oracle (same float32 inputs from a numpy seed)."""
+
+import contextlib
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from lyssandra_tpu import oracle
+from lyssandra_tpu.ops.pallas_omp import omp_fused as pallas_omp_fused
+from lyssandra_tpu_torch import _build
+from lyssandra_tpu_torch.ops import (
+    cuda_gram, cuda_omp, launch_counts, reset_launch_counts,
+)
+from lyssandra_tpu_torch.solvers import greedy
+from tests.conftest import make_problem
+
+torch.set_num_threads(1)
+
+F32 = torch.float32
+
+# (p, K, T) -> route on float32 CUDA tensors with float32 selection
+_ROUTES = [
+    ((64, 12304, 8), "gram"),        # the Gram form's largest K at p=64, T=8
+    ((64, 12305, 8), "residual"),    # one atom past it
+    ((64, 12256, 10), "gram"),       # SRC's T
+    ((64, 12257, 10), "residual"),
+    ((64, 16800, 10), "residual"),   # SRC on 16,800 training samples
+    ((512, 10752, 32), "gram"),
+    ((512, 10753, 32), "residual"),
+    ((512, 65536, 32), "residual"),
+    ((1, 1_000_000, 1), "residual"),
+    ((513, 20000, 8), "plain"),      # p above the reference's gate
+    ((768, 11553, 10), "plain"),
+    ((768, 256, 10), "gram"),        # the Gram form has no cap on p
+    ((64, 20000, 200), "plain"),     # the factor does not fit shared memory
+]
+
+
+@pytest.mark.parametrize("shape, route", _ROUTES)
+def test_route_at_its_boundaries(shape, route):
+    assert greedy.omp_route("cuda", F32, F32, "f32", *shape) == route
+
+
+@pytest.mark.parametrize("what", ["cpu", "bf16", "float64", "meta"])
+def test_route_plain_off_the_kernels(what):
+    kw = dict(device_type="cuda", D_dtype=F32, X_dtype=F32, corr_dtype="f32")
+    kw.update({"cpu": {"device_type": "cpu"}, "bf16": {"corr_dtype": "bf16"},
+               "float64": {"X_dtype": torch.float64},
+               "meta": {"device_type": "meta"}}[what])
+    for shape in ((64, 1024, 8), (64, 16384, 8)):
+        assert greedy.omp_route(p=shape[0], K=shape[1], T=shape[2],
+                                **kw) == "plain"
+
+
+def test_route_of_tensors_and_fused_supported(monkeypatch):
+    D = torch.empty((64, 16384))
+    X = torch.empty((64, 4))
+    assert greedy._route_of(D, X, 8) == "plain"        # CPU tensors
+    assert not greedy._fused_supported(D, X, 8)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    assert greedy._route_of(D, X, 8) == "residual"
+    assert greedy._fused_supported(D, X, 8)
+    assert greedy._route_of(D[:, :1024], X, 8) == "gram"
+    assert not greedy._fused_supported(D, X, 8, "bf16")
+    assert not greedy._fused_supported(torch.empty((513, 16384)),
+                                       torch.empty((513, 4)), 8)
+
+
+@pytest.mark.parametrize("p, T, want", [
+    (64, 8, 4 * (128 + 64 + 48 + 8)),
+    (21, 3, 4 * (48 + 9 + 18 + 8)),
+    (512, 32, 4 * (1024 + 1024 + 192 + 8)),
+    (512, 10, 4 * (1024 + 100 + 60 + 8)),
+])
+def test_residual_lane_smem_bytes(p, T, want):
+    # x and r (p rounded up to 8 each), the T x T factor, six T-vectors and
+    # four partial maxima (value, index); nothing grows with K
+    assert cuda_omp.residual_lane_smem_bytes(p, T) == want
+    assert cuda_omp.residual_block_smem_bytes(p, T, 16) == \
+        4 * 2 * 8 * 512 + 16 * want
+
+
+def test_residual_envelope():
+    assert cuda_omp.residual_block_lanes(64, 8) == 16
+    assert cuda_omp.residual_block_lanes(512, 32) == 16   # 176,640 bytes
+    assert cuda_omp.residual_block_lanes(512, 48) == 8
+    assert cuda_omp.residual_block_lanes(64, 100) == 4
+    assert cuda_omp.residual_block_lanes(64, 120) == 0
+    for K in (1, 12305, 65536, 10 ** 7):
+        assert cuda_omp.residual_kernel_supports(64, K, 8)
+        assert cuda_omp.residual_kernel_supports(512, K, 32)
+    assert not cuda_omp.residual_kernel_supports(64, 0, 8)
+    assert not cuda_omp.residual_kernel_supports(64, 1024, 0)
+    for p, T in ((64, 8), (512, 32), (512, 48), (64, 100)):
+        lanes = cuda_omp.residual_block_lanes(p, T)
+        assert cuda_omp.residual_block_smem_bytes(p, T, lanes) <= \
+            _build.SMEM_PER_BLOCK
+
+
+def _stub_cuda(monkeypatch):
+    """CUDA-looking meta tensors and a stand-in kernel library that records
+    each call's arguments."""
+    calls = []
+    lib = types.SimpleNamespace(
+        lyssa_omp_residual=lambda *a: calls.append(("residual", a)) or 0,
+        lyssa_omp_fused=lambda *a: calls.append(("gram", a)) or 0)
+
+    def gram(A, B, *, symmetric=False):
+        cuda_gram.gram.launches += 1
+        return torch.empty((A.shape[1], B.shape[1]), device=A.device)
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(cuda_omp._build, "load", lambda: lib)
+    monkeypatch.setattr(cuda_omp, "gram", gram)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("eps_mode", [False, True])
+def test_residual_wrapper_launches_once_without_gram(monkeypatch, eps_mode):
+    calls = _stub_cuda(monkeypatch)
+    D = torch.empty((64, 16384), device="meta")
+    X = torch.empty((64, 1000), device="meta")
+    reset_launch_counts()
+    idx, gamma, err, nsel = cuda_omp.omp_residual_fused(
+        D, X, T=10, eps=2.0, eps_mode=eps_mode)
+    counts = launch_counts()
+    mode = "eps" if eps_mode else "t"
+    assert counts[f"omp_residual_{mode}"] == 1
+    assert sum(counts.values()) == 1                   # no G, no K1/K2
+    assert tuple(idx.shape) == (1000, 10) and tuple(nsel.shape) == (1000,)
+    ((kind, args),) = calls
+    # p, K, N, T, eps^2, eps_mode, lanes
+    assert kind == "residual"
+    assert args[3:10] == (64, 16384, 1000, 10, 4.0, int(eps_mode), 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_omp.omp_residual_fused(D, X, T=400)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_omp.omp_residual_fused(D.double(), X, T=8)
+
+
+@pytest.mark.parametrize("entry", ["batch_omp", "omp", "encoder", "src"])
+def test_entry_points_take_the_route(monkeypatch, entry):
+    # the route's kernel is the one launched: residual above the cap, the
+    # Gram form (one G product) at and below it, for every caller
+    from lyssandra_tpu_torch import SparseEncoder, SRCClassifier
+
+    calls = _stub_cuda(monkeypatch)
+    dev = torch.device("meta")
+    for K, kind in ((12305, "residual"), (12304, "gram")):
+        calls.clear()
+        reset_launch_counts()
+        D = torch.empty((64, K), device=dev)
+        X = torch.empty((64, 48), device=dev)
+        if entry == "batch_omp":
+            greedy.batch_omp(D, X, 8, dense=False, device=dev)
+        elif entry == "omp":
+            greedy.omp(D, X, 8, eps=0.1, dense=False, device=dev)
+        elif entry == "encoder":
+            SparseEncoder("bomp", {"T": 8}, check_atoms=False,
+                          device=dev).encode(X, D, dense=False)
+        else:
+            monkeypatch.setattr(greedy.GreedyResult, "dense",
+                                lambda self, K: torch.zeros(
+                                    (K, self.idx.shape[0]), device=dev))
+            src = SRCClassifier(T=8, normalize=False, device=dev)
+            src._set_dictionary(D, np.arange(K) % 3)
+            src.residuals(X)
+        assert [c[0] for c in calls] == [kind], (K, calls)
+        counts = launch_counts()
+        assert counts["gram"] == (kind == "gram")
+        mode = "eps" if entry == "omp" else "t"
+        name = ("omp_residual_" if kind == "residual" else "omp_fused_") + mode
+        assert counts[name] == 1
+
+
+def test_residual_wrapper_runs_plain_version_on_cpu(rng):
+    D, X, _ = make_problem(rng, p=12, K=300, N=50, T=3)
+    Dt, Xt = (torch.from_numpy(a.astype(np.float32)) for a in (D, X))
+    reset_launch_counts()
+    got = cuda_omp.omp_residual_fused(Dt, Xt, T=4)
+    want = cuda_omp.omp_fused_reference(Dt, Xt, T=4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert sum(launch_counts().values()) == 0
+
+
+# K above the Gram form's cap at p=64, T=8 (12,304), a multiple of 128 so
+# that the Pallas kernel takes it unpadded
+_P, _K, _T, _N = 64, 12416, 8, 256
+
+
+def _planted(eps_mode):
+    rng = np.random.default_rng(7)
+    D, X, _ = make_problem(rng, p=_P, K=_K, N=_N, T=_T if not eps_mode else 4)
+    if eps_mode:
+        X[:, ::2] *= 0.05
+    return D.astype(np.float32), X.astype(np.float32)
+
+
+def _hold(got, want, exact=True):
+    """got against want, lane by lane: idx (up to nsel) and nsel equal on
+    every lane; where they are, |dgamma| <= 1e-4 and err within rtol
+    1e-4."""
+    idx, gamma, err, nsel = (np.asarray(a) for a in got)
+    widx, wgamma, werr, wnsel = (np.asarray(a) for a in want)
+    keep = np.arange(idx.shape[1])[None, :] < wnsel[:, None]
+    same = (nsel == wnsel) & ((idx == widx) | ~keep).all(axis=1)
+    assert same.all(), np.where(~same)[0]
+    np.testing.assert_allclose(gamma, wgamma, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(err, werr, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("eps_mode", [False, True])
+@pytest.mark.parametrize("entry", ["batch_omp", "omp"])
+def test_above_the_cap_matches_pallas_interpret(eps_mode, entry):
+    D, X = _planted(eps_mode)
+    eps = 0.05 if eps_mode else None
+    got = getattr(greedy, entry)(torch.from_numpy(D), torch.from_numpy(X),
+                                 _T, eps, dense=False)
+    want = pallas_omp_fused(jnp.asarray(D), jnp.asarray(X), T=_T,
+                            eps=eps or 0.0, eps_mode=eps_mode, block=_N,
+                            interpret=True)
+    _hold(got, want)
+    # the kernel's plain version is the same solve
+    ref = cuda_omp.omp_residual_fused(torch.from_numpy(D),
+                                      torch.from_numpy(X), T=_T,
+                                      eps=eps or 0.0, eps_mode=eps_mode)
+    _hold(got, ref)
+    if eps_mode:
+        assert np.asarray(got[3]).mean() < _T
+
+
+@pytest.mark.parametrize("eps_mode", [False, True])
+def test_above_the_cap_matches_oracle(eps_mode):
+    D, X = _planted(eps_mode)
+    eps = 0.05 if eps_mode else None
+    got = greedy.batch_omp(D, X, _T, eps, device="cpu").numpy()
+    want = oracle.batch_omp(D.astype(np.float64), X.astype(np.float64), _T,
+                            eps)
+    np.testing.assert_array_equal(got != 0, want != 0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -224,9 +224,9 @@ def test_launch_counters_stay_zero_on_cpu(rng):
     lt.FeatureExtractor(lt.dct_dictionary(4, 16, device="cpu"), patch=4,
                         stride=2).transform(torch.randn(2, 12, 12))
     assert lt.launch_counts() == {
-        "omp_fused_t": 0, "omp_fused_eps": 0, "fused_patches": 0,
-        "group_omp_fused": 0, "fs_cold": 0, "select_abs_argmax": 0,
-        "gram": 0}
+        "omp_fused_t": 0, "omp_fused_eps": 0, "omp_residual_t": 0,
+        "omp_residual_eps": 0, "fused_patches": 0, "group_omp_fused": 0,
+        "fs_cold": 0, "select_abs_argmax": 0, "gram": 0}
 
 
 def test_dictionary_from_numpy_checks(rng):

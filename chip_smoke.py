@@ -222,8 +222,9 @@ Phases, in order; any failure raises and exits non-zero:
      gamma and nsel equal to the unsharded call on every lane, times in
      turns (CUDA events), host syncs a call (sync debug mode); (s2)
      omp_model_sharded at K=16,384 (above the Gram-form K1's cap), N=8,192
-     on 2x4 slots against the replicated omp, which launches the
-     residual-form kernel once a call (K1-L; K2-L in eps mode): idx equal
+     on 2x4 slots against the replicated omp, which runs the residual
+     form once a call (K1-L; K2-L in eps mode: an init, then a selection
+     and an update launch a step): idx equal
      on >= 99.9% of lanes, gamma within 1e-4 there, eps mode nsel equal,
      time and host syncs; (s3)
      sharded_ksvd_step (4 slots) against ksvd_train_step on config 2's
@@ -239,24 +240,33 @@ Phases, in order; any failure raises and exits non-zero:
      OnlineDictionaryLearner(mesh=).fit at config 4's widths, 2 minibatches
      of 4,096 on 4 slots, D within 2e-3 of the unsharded fit; each line
      beside the card's name and power limit, and each sub-path's seconds;
- 12. after phase 11, K1/K2 above the Gram form's shared-memory cap
-     (csrc/omp_residual.cu, the residual form; K1-L and K2-L): (t) the
-     kernel at p=64, K=16,384, T=8 on 32,768 Gaussian signals (K1-L; K2-L
-     at eps=0.3 with half the signals scaled by 0.05) and on planted
-     8-sparse ones (eps=0.05) against its plain version: idx and nsel
+ 12. after phase 11, K1/K2 above the Gram form's shared-memory cap (the
+     residual form, K1-L and K2-L: csrc/omp_residual.cu's init and update
+     kernels around csrc/select.cu's float32 selection on the running
+     lanes): (t) at p=64, K=16,384, T=8 on 32,768 Gaussian signals (K1-L;
+     K2-L at eps=0.3 with half the signals scaled by 0.05) and on planted
+     8-sparse ones (eps=0.05) against the plain version: idx and nsel
      equal on >= 99.9% of the Gaussian lanes and on every planted one,
-     |dgamma| <= 1e-4 and err within rtol 1e-4 there; its time, the plain
-     version's, the bound (2 p K flops a lane and step), D's bytes
-     streamed from L2, one launch a call, the kernel's shared memory
-     against the wrapper's formula, blocks of 8 and 4 lanes (p=512, T=48
-     and p=64, T=100; planted signals in eps mode equal on every lane,
-     p=512 in T-mode on >= 99%); then batch_omp (T-mode) and omp
+     |dgamma| <= 1e-4 and err within rtol 1e-4 there; its time and by
+     phase (init, selection, update: CUDA events around each launch), the
+     plain version's, the selection as one PyTorch call a step
+     (argmax(abs(r @ D)) at each step's running lanes), the bound (2 p K
+     flops a lane and step), D's bytes streamed from L2, host syncs a call
+     (at most one), K2-L at least 20% below K1-L; K2-L on lanes that finish
+     at spread-out steps (0-8 planted atoms, eps=0.1) and on the same lanes
+     all done on entry, held lane by lane; a call's launches (one init, a
+     selection and an update a step), the step kernel's shared memory
+     against the wrapper's formula, the envelope's widest factors (p=512,
+     T=48 and p=64, T=100: planted signals in eps mode equal on every
+     lane, p=512 in T-mode on >= 99%; p=64, T=100 over more than one chunk
+     of lanes); ptxas's registers and spills for every instance of the
+     residual form; then batch_omp (T-mode) and omp
      (eps mode) at 256 signals on a grid of p in (64, 512), K in (1,024,
      12,304, 12,305, 16,384, 65,536), T in (8, 32): the launch counts
      name the route, the Gram form wherever cuda_omp.kernel_supports
      holds, else the residual form, never the plain route; (n2) SRC (T=10)
      fit and predict on digits_problem(n=24,000) (16,800 training atoms,
-     7,200 test images): one K1-L launch a predict, accuracy within 0.02
+     7,200 test images): one K1-L call a predict, accuracy within 0.02
      of the same pipeline on the plain route, K1-L's lane agreement on
      SRC's coding printed (the stand-in's atoms are coherent), fit and
      predict seconds;
@@ -1994,21 +2004,22 @@ def mesh_paths(torch, lt, dev, card, Db, Xb, Dd, img_d, noisy, gpus=None):
     out["s1_seconds"] = time.perf_counter() - t_s
 
     # --- (s2) atom-sharded OMP above the Gram form's K cap, against the
-    # replicated omp, which takes the residual-form kernel (K1-L) there
+    # replicated omp, which takes the residual form (K1-L) there
     t_s = time.perf_counter()
     Kb, Nb = MESH_K, MESH_N
     rng = np.random.default_rng(11)
     D2, X2 = make_problem(rng, P, Kb, Nb, T)
     D2, X2 = torch.as_tensor(D2, device=dev), torch.as_tensor(X2, device=dev)
     check(_route_of(D2, X2, T) == "residual",
-          f"(s2) K={Kb} must take the residual-form kernel")
+          f"(s2) K={Kb} must take the residual form")
     mesh = slots(2, 4)
     (res, counts) = counted(lambda: omp_model_sharded(
         D2, X2, T, mesh=mesh, dense=False))
     (ref, counts_rep) = counted(lambda: lt.omp(D2, X2, T, dense=False))
-    check(counts_rep["omp_residual_t"] == 1
-          and sum(counts_rep.values()) == 1,
-          f"(s2) the replicated omp: one K1-L launch expected, got "
+    want = {"omp_residual_t": 1, "omp_residual_select": T,
+            "omp_residual_update": T}
+    check(counts_rep == {k: want.get(k, 0) for k in counts_rep},
+          f"(s2) the replicated omp: one K1-L call ({want}) expected, got "
           f"{counts_rep}")
     same = (res.idx == ref.idx).all(dim=1) & (res.nsel == ref.nsel)
     agree = float(same.double().mean())
@@ -2026,10 +2037,11 @@ def mesh_paths(torch, lt, dev, card, Db, Xb, Dd, img_d, noisy, gpus=None):
     re = omp_model_sharded(D2, Xe, T, eps=eps, mesh=mesh, dense=False)
     (rr, counts_eps) = counted(lambda: lt.omp(D2, Xe, T, eps=eps,
                                               dense=False))
-    check(counts_eps["omp_residual_eps"] == 1
-          and sum(counts_eps.values()) == 1,
-          f"(s2) the replicated omp, eps mode: one K2-L launch expected, got "
-          f"{counts_eps}")
+    want = {"omp_residual_eps": 1, "omp_residual_select": T,
+            "omp_residual_update": T}
+    check(counts_eps == {k: want.get(k, 0) for k in counts_eps},
+          f"(s2) the replicated omp, eps mode: one K2-L call ({want}) "
+          f"expected, got {counts_eps}")
     nsel_eq = float((re.nsel == rr.nsel).double().mean())
     _, syncs_eps = count_syncs(torch, lambda: omp_model_sharded(
         D2, Xe, T, eps=eps, mesh=mesh, dense=False))
@@ -2206,35 +2218,137 @@ def planted_problem(rng, p, K, N, s):
     return D.astype(np.float32), X.astype(np.float32)
 
 
-def ptxas_registers(log, kernel):
-    """Registers per thread of each compiled instance of `kernel`, from the
-    build's `-Xptxas -v` lines, by mangled name."""
-    regs, name = {}, None
+def spread_problem(rng, p, K, N, T):
+    """Planted signals whose lanes finish at spread-out steps in eps mode
+    (eps 0.1): lane n is a combination of n % (T + 1) atoms with Gaussian
+    weights, plus noise of 0.01 a coordinate (||noise||^2 about 0.0064 at
+    p=64), so a lane with no atom is done on entry and the others once
+    they hold their atoms."""
+    D = rng.standard_normal((p, K))
+    D /= np.linalg.norm(D, axis=0, keepdims=True)
+    X = 0.01 * rng.standard_normal((p, N))
+    for s in range(1, T + 1):
+        lanes = np.arange(s, N, T + 1)
+        idx = np.stack([rng.choice(K, s, replace=False) for _ in lanes])
+        X[:, lanes] += np.einsum("pnt,nt->pn", D[:, idx],
+                                 rng.standard_normal((len(lanes), s)))
+    return D.astype(np.float32), X.astype(np.float32)
+
+
+def ptxas_report(log, pattern):
+    """ptxas's registers and spills for each compiled instance whose
+    mangled name matches `pattern`, from the build's `-Xptxas -v` lines:
+    {name: {"registers": n, "spill_stores": bytes, "spill_loads":
+    bytes}}."""
+    out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1) if kernel in m.group(1) else None
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            regs[name] = int(m.group(1))
-            name = None
-    return regs
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def steps_run(torch, res, T, eps=None):
+    """The lanes that ran each step's selection in a fused OMP result
+    (idx, gamma, err, nsel): those that took an atom there, and those that
+    froze there (short of T without reaching eps)."""
+    nsel, err = res[3], res[2]
+    done = (err <= eps * eps if eps is not None
+            else torch.zeros_like(nsel, dtype=torch.bool))
+    froze = (nsel < T) & ~done
+    return [int(((nsel > t) | ((nsel == t) & froze)).sum()) for t in range(T)]
+
+
+def residual_phases(torch, fn, reps=REPS):
+    """Device time of one residual-form call (cuda_omp.omp_residual_fused)
+    by phase: CUDA events around each launch of the kernel library (init,
+    selection, update), summed by phase; the median of `reps` warm calls
+    for each phase."""
+    from lyssandra_tpu_torch import _build
+
+    lib = _build.load()
+    phases = {"lyssa_omp_residual_init": "init",
+              "lyssa_select_rows": "selection",
+              "lyssa_omp_residual_step": "update"}
+    marks = []
+
+    class Timed:
+        def __getattr__(self, name):
+            real = getattr(lib, name)
+            if name not in phases:
+                return real
+
+            def call(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                code = real(*args)
+                stop.record()
+                marks.append((phases[name], start, stop))
+                return code
+            return call
+
+    fn()
+    load = _build.load
+    _build.load = lambda: Timed()
+    try:
+        runs = []
+        for _ in range(reps):
+            marks.clear()
+            fn()
+            torch.cuda.synchronize()
+            run = dict.fromkeys(phases.values(), 0.0)
+            for phase, start, stop in marks:
+                run[phase] += start.elapsed_time(stop)
+            runs.append(run)
+    finally:
+        _build.load = load
+    return {ph: statistics.median(r[ph] for r in runs)
+            for ph in phases.values()}
+
+
+def library_select_ms(torch, D, counts):
+    """The selection as one PyTorch call a step, argmax(abs(r @ D)) over
+    r (n, p), at each step's count n of running lanes, summed over the
+    steps (a yardstick the port never calls)."""
+    times, total = {}, 0.0
+    for n in counts:
+        if n and n not in times:
+            r = torch.randn((n, D.shape[0]), device=D.device)
+            times[n] = cuda_ms(torch, lambda: torch.argmax(
+                torch.abs(r @ D), dim=1), reps=3)
+            del r
+        total += times.get(n, 0.0)
+    return total
 
 
 def large_k_paths(torch, lt, dev, card):
     """Paths (t) and (n2): K1/K2 above the Gram form's shared-memory cap,
-    through the residual-form kernel (csrc/omp_residual.cu).  (t) the
-    kernel at p=64, K=16,384, T=8, N=32,768 against its plain version on
-    Gaussian and planted signals in both modes, timed, then a grid of
-    (p, K, T) through batch_omp and omp whose launch counts name the route;
-    (n2) SRC with 16,800 training samples.  Returns (the launches of the
-    grid, those of (n2), one JSON-able dict of results, the K1-L and K2-L
-    rows' numbers)."""
+    in the residual form (csrc/omp_residual.cu with csrc/select.cu's
+    float32 selection on the running lanes).  (t) at p=64, K=16,384, T=8,
+    N=32,768 against the plain version on Gaussian and planted signals in
+    both modes and on a mix whose lanes finish at spread-out steps, timed
+    by phase beside the library's selection, then a grid of (p, K, T)
+    through batch_omp and omp whose launch counts name the route; (n2) SRC
+    with 16,800 training samples.  Returns (the launches of the grid,
+    those of (n2), one JSON-able dict of results, the K1-L and K2-L rows'
+    numbers)."""
     from lyssandra_tpu_torch import _build
     from lyssandra_tpu_torch.ops import cuda_omp
     from lyssandra_tpu_torch.ops.cuda_omp import (
         kernel_supports, omp_fused_reference, omp_residual_fused,
-        residual_block_lanes, residual_block_smem_bytes,
+        residual_chunk_lanes, residual_splits, residual_step_smem_bytes,
     )
     from lyssandra_tpu_torch.solvers.greedy import omp_route
 
@@ -2253,7 +2367,9 @@ def large_k_paths(torch, lt, dev, card):
               for a in planted_problem(rng, p, K_, N, T_))
     Xpe = Xp.clone()
     Xpe[:, ::2] *= 0.05
-    lanes = residual_block_lanes(p, T_)
+    chunk = residual_chunk_lanes(p, T_)
+    splits = residual_splits(p, K_, min(N, chunk),
+                             cuda_omp._sm_count(dev.index or 0))
     cases = (("K1-L", "gaussian", Dg, Xg, {"T": T_}),
              ("K2-L", "gaussian", Dg, Xge, {"T": T_, "eps": LK_EPS,
                                             "eps_mode": True}),
@@ -2282,70 +2398,120 @@ def large_k_paths(torch, lt, dev, card):
             # the selection product over the steps the lanes ran, 2 p K
             # flops a lane and step (the rest is O(p T^2) a lane)
             steps = float(got[3].double().sum())
-            frozen = int((got[3] < T_).sum()) if "eps" not in kw else 0
+            eps = kw.get("eps")
+            frozen = int((got[3] < T_).sum()) if eps is None else 0
             bnd = bound_ms(4 * (p * N + p * K_ + 2 * N * T_ + 2 * N),
                            2 * p * K_ * steps, PEAK_F32)
             ms = cuda_ms(torch, lambda: omp_residual_fused(D, X, **kw))
             plain = cuda_ms(torch, lambda: omp_fused_reference(D, X, **kw))
-            # D streams through each block's shared memory once a step the
-            # block runs: until its lanes are all done or frozen
-            nb = -(-N // lanes)
-            ran = torch.nn.functional.pad(
-                got[3], (0, nb * lanes - N)).view(nb, lanes).amax(dim=1)
-            if "eps" not in kw:
-                ran = torch.full_like(ran, T_)
-            d_bytes = 4.0 * p * K_ * float(ran.double().sum())
+            phases = residual_phases(torch, lambda: omp_residual_fused(
+                D, X, **kw))
+            ran = steps_run(torch, got, T_, eps)
+            library = library_select_ms(torch, D, ran)
+            _, syncs = count_syncs(torch, lambda: omp_residual_fused(
+                D, X, **kw))
+            check(syncs <= 1, f"(t) {name}: {syncs} host syncs a call")
+            # D streams through shared memory once per selection block
+            # (128 running lanes, one atom range) and step
+            d_bytes = 4.0 * p * K_ * sum(-(-n // 128) for n in ran)
+            sel_ops = 2.0 * p * K_ * sum(ran)
             rows[name] = {
                 "max_abs_err": h["max_abs_err"], "ms": ms, "plain_ms": plain,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "lanes_per_block":
-                lanes, "mean_nsel": h["mean_nsel"], "lanes_frozen": frozen,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library, "phases_ms": phases,
+                "host_syncs": syncs, "chunk_lanes": chunk,
+                "selection_splits": list(splits), "lanes_per_step": ran,
+                "mean_nsel": h["mean_nsel"], "lanes_frozen": frozen,
                 "d_bytes_streamed": d_bytes,
-                "d_stream_tb_per_s": d_bytes / (ms * 1e-3) / 1e12,
+                "d_stream_tb_per_s": d_bytes / (phases["selection"] * 1e-3)
+                / 1e12,
+                "selection_tflop_per_s": sel_ops
+                / (phases["selection"] * 1e-3) / 1e12,
                 "tflop_per_s": 2 * p * K_ * steps / (ms * 1e-3) / 1e12}
             print(f"[{card}] (t) {name} p={p} K={K_} T={T_} N={N}: kernel "
-                  f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd[0]:.4f} ms "
-                  f"({bnd[1]}, {bnd[0] / ms:.3f} of the kernel's time); "
-                  f"{lanes} lanes a block; D streamed "
-                  f"{d_bytes / 1e9:.2f} GB ({d_bytes / (ms * 1e-3) / 1e12:.2f}"
-                  f" TB/s), {rows[name]['tflop_per_s']:.2f} TFLOP/s")
-    # the kernel's shared memory against the wrapper's formula
+                  f"{ms:.3f} ms (init {phases['init']:.4f}, selection "
+                  f"{phases['selection']:.3f}, update {phases['update']:.3f}"
+                  f" ms), plain {plain:.3f} ms, library selection "
+                  f"{library:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, "
+                  f"{bnd[0] / ms:.3f} of the kernel's time); lanes a step "
+                  f"{ran}; atoms in {splits[0]} ranges of {splits[1]} tiles; "
+                  f"D streamed {d_bytes / 1e9:.2f} GB "
+                  f"({rows[name]['d_stream_tb_per_s']:.2f} TB/s in the "
+                  f"selection), selection "
+                  f"{rows[name]['selection_tflop_per_s']:.2f} TFLOP/s; "
+                  f"{syncs} host syncs a call")
+    check(rows["K2-L"]["ms"] <= 0.8 * rows["K1-L"]["ms"],
+          f"(t) K2-L {rows['K2-L']['ms']} ms is not 20% below K1-L's "
+          f"{rows['K1-L']['ms']} ms: its work does not follow its lanes")
+    # K2-L on lanes that finish at spread-out steps (0 to 8 atoms, eps
+    # 0.1), and on the same lanes scaled so that every one is done on entry
+    Dm, Xm = (torch.as_tensor(a, device=dev)
+              for a in spread_problem(np.random.default_rng(24), p, K_, N,
+                                      T_))
+    spread = {}
+    for what, X in (("spread", Xm), ("all done on entry", 1e-3 * Xm)):
+        kw = {"T": T_, "eps": 0.1, "eps_mode": True}
+        got = omp_residual_fused(Dm, X, **kw)
+        h = hold_lanes(torch, got, omp_fused_reference(Dm, X, **kw), X)
+        h["lanes_per_step"] = steps_run(torch, got, T_, kw["eps"])
+        h["ms"] = cuda_ms(torch, lambda: omp_residual_fused(Dm, X, **kw))
+        spread[what] = h
+        print(f"[{card}] (t) K2-L {what} p={p} K={K_} T={T_} N={N} eps=0.1: "
+              f"idx and nsel equal on {h['agree']:.6f} of lanes, max "
+              f"|dgamma| {h['gamma_abs']:.3g}, |derr|/err "
+              f"{h['err_rtol']:.3g} there; lanes a step "
+              f"{h['lanes_per_step']}; {h['ms']:.3f} ms")
+        check(h["agree"] >= (0.999 if what == "spread" else 1.0)
+              and h["gamma_abs"] <= 1e-4 and h["err_rtol"] <= 1e-4,
+              f"(t) K2-L on the {what} mix against its plain version: {h}")
+    check(spread["all done on entry"]["lanes_per_step"][0] == 0
+          and len(set(spread["spread"]["lanes_per_step"])) == T_,
+          f"(t) K2-L mixes: lanes a step {spread}")
+    del Dm, Xm
+    # the step kernel's shared memory against the wrapper's formula
     lib = _build.load()
-    for sp, st in ((p, T_), (p, SRC_T), (512, 32), (21, 3), (64, 100)):
-        sl = residual_block_lanes(sp, st)
-        check(lib.lyssa_omp_residual_smem_bytes(sp, st, sl)
-              == residual_block_smem_bytes(sp, st, sl),
-              f"(t) K1-L shared memory at p={sp}, T={st}, {sl} lanes: the "
-              f"kernel and residual_block_smem_bytes disagree")
-    # blocks of 8 and 4 lanes, where the state of 16 does not fit: planted
-    # 4-sparse signals that reach eps in a few steps (equal on every lane),
-    # and 48 steps at p=512 (noise-level picks: >= 99% of lanes)
+    for st in (T_, SRC_T, 32, 48, 100):
+        check(lib.lyssa_omp_residual_step_smem_bytes(st)
+              == residual_step_smem_bytes(st),
+              f"(t) K1-L step shared memory at T={st}: the kernel and "
+              f"residual_step_smem_bytes disagree")
+    # the envelope's widest factors: p=512, T=48 and p=64, T=100 (lanes
+    # that reach eps in a few steps: equal on every lane; 48 steps at
+    # p=512: noise-level picks, >= 99% of lanes), then p=64, T=100 on 7,000
+    # lanes, more than one chunk
     lane_cases = []
-    for sp, st, modes in ((512, 48, ("eps", "T")), (64, 100, ("eps",))):
+    for sp, st, n, modes in ((512, 48, 200, ("eps", "T")),
+                             (64, 100, 200, ("eps",)),
+                             (64, 100, 7000, ("eps",))):
         Dv, Xv = (torch.as_tensor(a, device=dev) for a in planted_problem(
-            np.random.default_rng(sp + st), sp, 13000, 200, 4))
+            np.random.default_rng(sp + st + n), sp, 13000, n, 4))
         Xv[:, ::2] *= 0.05
         for mode in modes:
             kw = ({"T": st, "eps": LK_EPS, "eps_mode": True} if mode == "eps"
                   else {"T": st})
             h = hold_lanes(torch, omp_residual_fused(Dv, Xv, **kw),
                            omp_fused_reference(Dv, Xv, **kw), Xv)
-            h.update(p=sp, T=st, mode=mode,
-                     lanes=residual_block_lanes(sp, st))
+            h.update(p=sp, T=st, N=n, mode=mode,
+                     chunk_lanes=residual_chunk_lanes(sp, st))
             lane_cases.append(h)
-            print(f"[{card}] (t) K1-L/K2-L p={sp} K=13000 T={st} {mode} "
-                  f"mode, {h['lanes']} lanes a block: idx and nsel equal on "
-                  f"{h['agree']:.4f} of 200 lanes, max |dgamma| "
-                  f"{h['gamma_abs']:.3g} there")
+            print(f"[{card}] (t) K1-L/K2-L p={sp} K=13000 T={st} N={n} "
+                  f"{mode} mode, chunks of {h['chunk_lanes']} lanes: idx "
+                  f"and nsel equal on {h['agree']:.4f} of lanes, max "
+                  f"|dgamma| {h['gamma_abs']:.3g} there")
             check(h["agree"] >= (1.0 if mode == "eps" else 0.99)
                   and h["gamma_abs"] <= 1e-4,
-                  f"(t) p={sp} T={st} {mode} mode: {h}")
-    # one launch a call, no product launch
+                  f"(t) p={sp} T={st} N={n} {mode} mode: {h}")
+    # a call's launches: one init (a chunk), then a selection and an update
+    # a step; no product launch
     lt.reset_launch_counts()
     omp_residual_fused(Dg, Xg, T=T_)
     per_call = lt.launch_counts()
-    check(per_call["omp_residual_t"] == 1 and sum(per_call.values()) == 1,
-          f"(t) one K1-L launch a call, got {per_call}")
-    out["t"] = {"held": held, "rows": rows, "lane_cases": lane_cases}
+    want = {"omp_residual_t": 1, "omp_residual_select": T_,
+            "omp_residual_update": T_}
+    check(per_call == {k: want.get(k, 0) for k in per_call},
+          f"(t) a K1-L call's launches {per_call}, not {want}")
+    out["t"] = {"held": held, "rows": rows, "spread": spread,
+                "lane_cases": lane_cases}
     del Dg, Xg, Xge, Dp, Xp, Xpe, got, want
 
     # --- the grid: which kernel each batch_omp / omp call takes
@@ -2375,7 +2541,9 @@ def large_k_paths(torch, lt, dev, card):
                     k: launches_t[k] + counts[k] for k in launches_t}
                 want = ({"omp_fused_t": 1, "omp_fused_eps": 1, "gram": 2}
                         if route == "gram" else
-                        {"omp_residual_t": 1, "omp_residual_eps": 1})
+                        {"omp_residual_t": 1, "omp_residual_eps": 1,
+                         "omp_residual_select": 2 * gt,
+                         "omp_residual_update": 2 * gt})
                 check(counts == {k: want.get(k, 0) for k in counts},
                       f"(t) grid p={gp} K={gk} T={gt}: route {route}, "
                       f"launches {counts}")
@@ -2398,7 +2566,9 @@ def large_k_paths(torch, lt, dev, card):
                       f"N={LK_GRID_N}: {route} ({counts['omp_fused_t']} K1, "
                       f"{counts['omp_fused_eps']} K2, "
                       f"{counts['omp_residual_t']} K1-L, "
-                      f"{counts['omp_residual_eps']} K2-L, "
+                      f"{counts['omp_residual_eps']} K2-L calls with "
+                      f"{counts['omp_residual_select']} selection and "
+                      f"{counts['omp_residual_update']} update launches, "
                       f"{counts['gram']} gram); picks agree with the plain "
                       f"version on {hb['agree']:.4f} (T-mode), "
                       f"{ho['agree']:.4f} (eps={eps:.3f}); {sec:.3f} s")
@@ -2430,9 +2600,11 @@ def large_k_paths(torch, lt, dev, card):
         return r, src
 
     kernel, src = src_run()
-    check(kernel["launches"]["omp_residual_t"] == 1
-          and sum(kernel["launches"].values()) == 1,
-          f"(n2) SRC predict: one K1-L launch expected, got "
+    want = {"omp_residual_t": 1, "omp_residual_select": SRC_T,
+            "omp_residual_update": SRC_T}
+    check(kernel["launches"] == {k: want.get(k, 0)
+                                 for k in kernel["launches"]},
+          f"(n2) SRC predict: one K1-L call ({want}) expected, got "
           f"{kernel['launches']}")
     predict_ms = cuda_ms(torch, lambda: src.predict(Xte), reps=3)
     real = cuda_omp.omp_residual_fused
@@ -3538,7 +3710,13 @@ def main():
     # --- 12. K1/K2 above the Gram form's cap, SRC on 16,800 atoms
     launches_t, launches_n2, large_k_out, lk = large_k_paths(torch, lt, dev,
                                                              card)
-    lk_regs = ptxas_registers(log, "omp_residual_kernel")
+    # ptxas on every instance of the residual form: its init and step
+    # kernels and the listed float32 selection
+    lk_ptxas = ptxas_report(log, r"omp_residual_cu|f3213select_kernelILi\d+ELb1E")
+    for name, rep in sorted(lk_ptxas.items()):
+        print(f"(t) ptxas {name}: {rep}")
+    check(len(lk_ptxas) == 6 and all(len(r) == 3 for r in lk_ptxas.values()),
+          f"(t) ptxas: six residual-form instances expected, got {lk_ptxas}")
     paths = (launches, launches_g, launches_b, launches_d, launches_e,
              launches_f, launches_inp, launches_h, launches_i, launches_j,
              launches_k, launches_l, launches_m, launches_n, launches_o,
@@ -3611,18 +3789,26 @@ def main():
          "bf16_max_abs_err": k7_err_bf16, "bf16_bound_ms": k7_bound_bf16[0],
          "bf16_bound_by": k7_bound_bf16[1]},
         # the residual form above the Gram form's cap: times at p=64,
-        # K=16,384, T=8, N=32,768 (path (t)); launches on the grid of (t),
-        # the replicated omp of (s2) and SRC's predict (n2)
+        # K=16,384, T=8, N=32,768 (path (t)); launches (init, one a call on
+        # these paths; the selection's and the update's, both modes
+        # together) on the grid of (t), the replicated omp of (s2) and
+        # SRC's predict (n2); library_ms the selection alone as
+        # argmax(abs(r @ D)) a step
         *({"name": f"omp_residual ({what})", "route": "cuda",
-           "source": "lyssandra_tpu_torch/csrc/omp_residual.cu",
+           "source": "lyssandra_tpu_torch/csrc/omp_residual.cu, "
+                     "lyssandra_tpu_torch/csrc/select.cu",
            "replaces": f"lyssandra_tpu/ops/pallas_omp.py:{line}",
            "launches": launches_t[key] + launches_s[key] + launches_n2[key],
-           "library_ms": None,
-           "registers": {k: v for k, v in lk_regs.items() if tag in k},
+           "step_launches": {
+               part: launches_t[c] + launches_s[c] + launches_n2[c]
+               for part, c in (("selection", "omp_residual_select"),
+                               ("update", "omp_residual_update"))},
+           "ptxas": {k: v for k, v in lk_ptxas.items()
+                     if tag in k or "select" in k},
            **lk[row]}
           for what, line, key, row, tag in (
-              ("fixed T", 79, "omp_residual_t", "K1-L", "Lb0E"),
-              ("eps exit", 235, "omp_residual_eps", "K2-L", "Lb1E"))),
+              ("fixed T", 79, "omp_residual_t", "K1-L", "ILb0E"),
+              ("eps exit", 235, "omp_residual_eps", "K2-L", "ILb1E"))),
         # times at K4's alpha0 shape (a group-encoder block); by_shape has
         # every main-path shape
         {"name": "gram", "route": "cuda",

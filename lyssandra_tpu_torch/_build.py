@@ -40,10 +40,14 @@ _SIGNATURES = {
     # nsel, stream
     "lyssa_omp_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P,
                         _P, _P, _P],
-    # X, D, Dt, p, K, N, T, eps2, eps_mode, lanes, idx, gamma, err, nsel,
-    # stream
-    "lyssa_omp_residual": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P,
-                           _P, _P],
+    # X, p, N, n0, C, eps2, eps_mode, xt, r, err, nsel, list, cnt, stream
+    "lyssa_omp_residual_init": [_P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P,
+                                _P, _P, _P],
+    # Dt, xt, r, L, a0, ksel, bsel, splits, list_in, cnt_in, list_out,
+    # cnt_out, p, C, T, t, eps2, eps_mode, idx, gamma, err, nsel, stream
+    "lyssa_omp_residual_step": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                                _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P,
+                                _P],
     # X, Dp, A0, Gp, p, ng, gs, N, T, warps, gamma, gidx, err, nsel, stream
     "lyssa_group_omp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                         _P, _P],
@@ -56,6 +60,8 @@ _SIGNATURES = {
                       _P, _P, _P],
     # r, D, p, K, N, bf16, Dh, k_out, stream
     "lyssa_select_abs_argmax": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # r, rows, count, D, p, K, N, splits, tiles, k_out, best_out, stream
+    "lyssa_select_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # A, B, p, M, K, symmetric, C, stream
     "lyssa_gram": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
@@ -154,8 +160,8 @@ def load() -> ctypes.CDLL:
     lib.lyssa_select_smem_bytes.restype = ctypes.c_size_t
     lib.lyssa_omp_fused_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.lyssa_omp_fused_smem_bytes.restype = ctypes.c_size_t
-    lib.lyssa_omp_residual_smem_bytes.argtypes = [_I, _I, _I]
-    lib.lyssa_omp_residual_smem_bytes.restype = ctypes.c_size_t
+    lib.lyssa_omp_residual_step_smem_bytes.argtypes = [_I]
+    lib.lyssa_omp_residual_step_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 

@@ -21,6 +21,11 @@
 // shared-memory wavefront: one 16-byte load of r and one of D per 32 fmas,
 // with no bank conflicts.  BM = 128 rows (256 threads) while p, rounded up
 // to 32, is at most 256, else 64 (128 threads), so that p = 512 fits.
+// The same kernel serves the residual-form OMP's selection
+// (lyssa_select_rows, csrc/omp_residual.cu): it reads the rows of r through
+// a list whose length lives on the device, and splits the atoms over a
+// second grid dimension, each block writing a partial maximum, so that a
+// few hundred running rows still fill the card.
 //
 // bfloat16 (bf16 != 0): both operands rounded to bfloat16 (round to nearest
 // even) and the products summed in float32 on the tensor cores (mma.sync
@@ -106,10 +111,17 @@ __host__ __device__ inline size_t smem_bytes(int p) {
                             (size_t)NSTAGE * BP * BN);
 }
 
-template <int BM>
+// LISTED (the residual-form OMP's selection, csrc/omp_residual.cu): row
+// n < *count of the problem is row rows[n] of r, blocks past *count leave
+// at once, and block (x, y) walks only the atom tiles y * tiles .. of its
+// rows, writing its partial maximum (value and index) to row y of
+// best_out and k_out (N apart); the caller combines the partials.
+template <int BM, bool LISTED>
 __global__ void __launch_bounds__(BM * BN / (TM * TN), 2)
-select_kernel(const float* __restrict__ r, const float* __restrict__ D, int p,
-              int K, int N, int* __restrict__ k_out) {
+select_kernel(const float* __restrict__ r, const int* __restrict__ rows,
+              const int* __restrict__ count, const float* __restrict__ D,
+              int p, int K, int N, int tiles, int* __restrict__ k_out,
+              float* __restrict__ best_out) {
     using Tl = lyssa::Tile<BM, BN, TM, TN, WX>;
     constexpr int NT = Tl::NT;
     constexpr int LDA = BM + 4;   // row stride of the transposed r tile
@@ -122,6 +134,11 @@ select_kernel(const float* __restrict__ r, const float* __restrict__ D, int p,
     const int tx = Tl::tx_of(tid);
     const int ty = Tl::ty_of(tid);
     const long long n0 = (long long)blockIdx.x * BM;
+    int n_rows = N;      // rows of the problem
+    if constexpr (LISTED) {
+        n_rows = *count;
+        if (n0 >= n_rows) return;           // block-uniform
+    }
 
     // the block's rows of r, read once (coalesced along p), zero past N, p
 #pragma unroll 4
@@ -129,7 +146,11 @@ select_kernel(const float* __restrict__ r, const float* __restrict__ D, int p,
         const int m = e / pp;
         const int c = e - m * pp;
         const long long n = n0 + m;
-        As[c * LDA + m] = (n < N && c < p) ? r[n * p + c] : 0.f;
+        if constexpr (LISTED)
+            As[c * LDA + m] = (n < n_rows && c < p)
+                                  ? r[(long long)rows[n] * p + c] : 0.f;
+        else
+            As[c * LDA + m] = (n < N && c < p) ? r[n * p + c] : 0.f;
     }
 
     float best[TM];
@@ -141,7 +162,12 @@ select_kernel(const float* __restrict__ r, const float* __restrict__ D, int p,
     }
     float acc[TM][TN];
     const int nc = pp / BP;                 // slices per atom tile
-    const int nk = (K + BN - 1) / BN;
+    int nk = (K + BN - 1) / BN;             // the block's atom tiles
+    int kt0 = 0;                            // and its first
+    if constexpr (LISTED) {
+        kt0 = blockIdx.y * tiles;
+        nk = min(nk - kt0, tiles);
+    }
     const bool vec = (K & 3) == 0 && ((size_t)D & 15) == 0;
 
     lyssa::pipeline<NSTAGE>(
@@ -150,7 +176,7 @@ select_kernel(const float* __restrict__ r, const float* __restrict__ D, int p,
             const int kt = s / nc;
             lyssa::stage_tile<BP, BN, NT>(Bs + buf * BP * BN, D, p, K,
                                           (s - kt * nc) * BP,
-                                          (long long)kt * BN, vec);
+                                          (long long)(kt0 + kt) * BN, vec);
         },
         [&](int s, int buf) {
             const int kt = s / nc;
@@ -164,7 +190,7 @@ select_kernel(const float* __restrict__ r, const float* __restrict__ D, int p,
             Tl::template mma<BP>(acc, As + cs * BP * LDA, LDA,
                                  Bs + buf * BP * BN, BN, ty, tx);
             if (cs == nc - 1) {
-                const int k0 = kt * BN;
+                const int k0 = (kt0 + kt) * BN;
                 if (k0 + BN <= K) {
 #pragma unroll
                     for (int j = 0; j < TN; ++j)
@@ -213,7 +239,15 @@ select_kernel(const float* __restrict__ r, const float* __restrict__ D, int p,
         for (int i = 0; i < TM; ++i) {
             const int m = Tl::row(ty, i);
             combine(xb[m], xi[m], best[i], bidx[i]);
-            if (n0 + m < N) k_out[n0 + m] = bidx[i];
+            if constexpr (LISTED) {
+                if (n0 + m < n_rows) {
+                    const size_t o = (size_t)blockIdx.y * N + n0 + m;
+                    k_out[o] = bidx[i];
+                    best_out[o] = best[i];
+                }
+            } else if (n0 + m < N) {
+                k_out[n0 + m] = bidx[i];
+            }
         }
     }
 }
@@ -222,11 +256,26 @@ template <int BM>
 cudaError_t launch(const float* r, const float* D, int p, int K, int N,
                    int* k_out, cudaStream_t stream) {
     const size_t smem = smem_bytes(p);
-    const cudaError_t e = lyssa::opt_in_smem<select_kernel<BM>>(smem);
+    const cudaError_t e =
+        lyssa::opt_in_smem<select_kernel<BM, false>>(smem);
     if (e != cudaSuccess) return e;
     const unsigned blocks = (unsigned)((N + BM - 1) / BM);
-    select_kernel<BM><<<blocks, BM * BN / (TM * TN), smem, stream>>>(
-        r, D, p, K, N, k_out);
+    select_kernel<BM, false><<<blocks, BM * BN / (TM * TN), smem, stream>>>(
+        r, nullptr, nullptr, D, p, K, N, 0, k_out, nullptr);
+    return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch_rows(const float* r, const int* rows, const int* count,
+                        const float* D, int p, int K, int N, int splits,
+                        int tiles, int* k_out, float* best_out,
+                        cudaStream_t stream) {
+    const size_t smem = smem_bytes(p);
+    const cudaError_t e = lyssa::opt_in_smem<select_kernel<BM, true>>(smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((unsigned)((N + BM - 1) / BM), (unsigned)splits);
+    select_kernel<BM, true><<<grid, BM * BN / (TM * TN), smem, stream>>>(
+        r, rows, count, D, p, K, N, tiles, k_out, best_out);
     return cudaGetLastError();
 }
 
@@ -787,5 +836,32 @@ extern "C" int lyssa_select_abs_argmax(const float* r, const float* D, int p,
         e = f32::launch<128>(r, D, p, K, N, k_out, s);
     else
         e = f32::launch<64>(r, D, p, K, N, k_out, s);
+    return static_cast<int>(e);
+}
+
+// The float32 selection over a list of rows, the atoms split over blocks
+// (the residual-form OMP's step, csrc/omp_residual.cu): for n < *count
+// (count on the device, at most N), the row rows[n] of r (at least
+// max(rows) + 1 rows of p floats) against D (p, K); the atoms in `splits`
+// ranges of `tiles` tiles of 128 (the last one shorter), one block row
+// each.  Writes split y's first maximum of |r . d_k| for row n, its index
+// and value, to k_out[y * N + n] and best_out[y * N + n] (k_out and
+// best_out hold splits * N entries).  Returns cudaGetLastError() after the
+// launch.
+extern "C" int lyssa_select_rows(const float* r, const int* rows,
+                                 const int* count, const float* D, int p,
+                                 int K, int N, int splits, int tiles,
+                                 int* k_out, float* best_out, void* stream) {
+    const int nk = (K + f32::BN - 1) / f32::BN;
+    if (p < 1 || p > 512 || K < 1 || N < 1 || splits < 1 || tiles < 1 ||
+        (long long)splits * tiles < nk || (splits - 1) * tiles >= nk)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t e =
+        f32::rows(p) == 128
+            ? f32::launch_rows<128>(r, rows, count, D, p, K, N, splits,
+                                    tiles, k_out, best_out, s)
+            : f32::launch_rows<64>(r, rows, count, D, p, K, N, splits,
+                                   tiles, k_out, best_out, s);
     return static_cast<int>(e);
 }

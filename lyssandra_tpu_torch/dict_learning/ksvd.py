@@ -298,7 +298,8 @@ class KSVDLearner:
         cfg = self.cfg
         D = (torch.as_tensor(D0, dtype=torch.float32, device=device).clone()
              if D0 is not None
-             else init_dictionary(X, cfg.K, cfg.init, cfg.seed, device))
+             else init_dictionary(X, cfg.K, cfg.init, cfg.seed,
+                                  device=device))
         start = 0
         if resume and self.workspace is not None:
             step, state = self.workspace.load_latest_state(

@@ -33,6 +33,8 @@ def launch_counts() -> dict[str, int]:
         "omp_fused_eps": omp_fused.launches_eps,
         "omp_residual_t": omp_residual_fused.launches_t,
         "omp_residual_eps": omp_residual_fused.launches_eps,
+        "omp_residual_select": omp_residual_fused.launches_select,
+        "omp_residual_update": omp_residual_fused.launches_update,
         "fused_patches": fused_patch_pipeline_p1.launches,
         "group_omp_fused": group_omp_fused.launches,
         "fs_cold": fs_cold_fused.launches,
@@ -46,6 +48,8 @@ def reset_launch_counts() -> None:
     omp_fused.launches_eps = 0
     omp_residual_fused.launches_t = 0
     omp_residual_fused.launches_eps = 0
+    omp_residual_fused.launches_select = 0
+    omp_residual_fused.launches_update = 0
     fused_patch_pipeline_p1.launches = 0
     group_omp_fused.launches = 0
     fs_cold_fused.launches = 0

@@ -2,8 +2,8 @@
 (``lyssandra_tpu.ops.dictionaries`` counterpart).
 
 The DCT dictionaries are set-up code in NumPy (float64, as the reference
-builds them), handed to torch as float32 (the port's one dtype) on the
-requested device.  The bookkeeping that K-SVD runs in its loop
+builds them), handed to torch as ``dtype`` (float32 by default, the port's
+working type) on the requested device.  The bookkeeping that K-SVD runs in its loop
 (``normalize_atoms``, ``replace_unused_atoms``) stays on the device and
 never reads a value on the host.
 """
@@ -16,9 +16,11 @@ import torch
 from lyssandra_tpu_torch._device import resolve_device
 
 
-def dct_dictionary(p: int, K: int, device=None) -> torch.Tensor:
+def dct_dictionary(p: int, K: int, dtype: torch.dtype = torch.float32,
+                   device=None) -> torch.Tensor:
     """Overcomplete 2-D DCT dictionary (p^2, K), unit columns. K = k^2.
-    On ``device`` (default: the GPU; see ``_device.resolve_device``)."""
+    As ``dtype``, on ``device`` (default: the GPU; see
+    ``_device.resolve_device``)."""
     k = int(round(np.sqrt(K)))
     if k * k != K:
         raise ValueError("K must be a perfect square")
@@ -30,19 +32,20 @@ def dct_dictionary(p: int, K: int, device=None) -> torch.Tensor:
         V[:, i] = v / np.linalg.norm(v)
     D = np.kron(V, V)
     D /= np.linalg.norm(D, axis=0, keepdims=True)
-    return torch.as_tensor(D, dtype=torch.float32,
-                           device=resolve_device(device))
+    return torch.as_tensor(D, dtype=dtype, device=resolve_device(device))
 
 
 def dct_dictionary_color(p: int, K: int, channels: int = 3,
+                         dtype: torch.dtype = torch.float32,
                          device=None) -> torch.Tensor:
-    """Channel-replicated DCT baseline for colour patches: (C p^2, K), on
-    ``device`` as ``dct_dictionary``."""
-    D = dct_dictionary(p, K, device)
+    """Channel-replicated DCT baseline for colour patches: (C p^2, K), as
+    ``dtype`` on ``device`` as ``dct_dictionary``."""
+    D = dct_dictionary(p, K, dtype, device)
     return D.repeat(channels, 1) / np.sqrt(channels)
 
 
 def init_dictionary(X, K: int, method: str = "data", seed: int = 0,
+                    dtype: torch.dtype = torch.float32,
                     device=None) -> torch.Tensor:
     """Unit-norm initial dictionary (p, K) for signals X (p, N): 'random'
     Gaussian, 'data' columns of X, or 'dct'.
@@ -59,19 +62,20 @@ def init_dictionary(X, K: int, method: str = "data", seed: int = 0,
     the port's D differs from the reference's for the same seed; hand a D0
     across to compare the two.
 
-    Runs on ``device`` (default: where X lies if it is a tensor, else the
-    GPU; see ``_device.resolve_device``).
+    Returns ``dtype`` (float32 by default; the draws are float32 in every
+    type).  Runs on ``device`` (default: where X lies if it is a tensor,
+    else the GPU; see ``_device.resolve_device``).
     """
     device = resolve_device(device, X)
     if method == "dct":
         p2 = X.shape[0]
         q = int(round(np.sqrt(p2)))
         if q * q == p2:
-            return dct_dictionary(q, K, device)
+            return dct_dictionary(q, K, dtype, device)
         for C in (3, 4, 2):
             q = int(round(np.sqrt(p2 / C)))
             if C * q * q == p2:
-                return dct_dictionary_color(q, K, C, device)
+                return dct_dictionary_color(q, K, C, dtype, device)
         raise ValueError(f"signal dim {p2} is not p^2 or C*p^2")
     gen = torch.Generator().manual_seed(seed)
     p, N = X.shape
@@ -89,7 +93,7 @@ def init_dictionary(X, K: int, method: str = "data", seed: int = 0,
         D = torch.where(nrm[None, :] < 1e-10, noise, D)
     else:
         raise ValueError(method)
-    return normalize_atoms(D)
+    return normalize_atoms(D.to(dtype))
 
 
 def normalize_atoms(D: torch.Tensor) -> torch.Tensor:

@@ -352,7 +352,7 @@ def _as_f32(A, device) -> torch.Tensor:
 
 
 def batch_omp(D, X, T: int, eps: float | None = None, *,
-              dense: bool = True, refresh: str = "auto",
+              precision=None, dense: bool = True, refresh: str = "auto",
               corr_dtype: str = "f32", device=None):
     """Batch-OMP (oracle.batch_omp semantics).
 
@@ -371,7 +371,10 @@ def batch_omp(D, X, T: int, eps: float | None = None, *,
     corr_dtype: 'f32', or 'bf16' for bf16 operands of the residual form's
     selection product (see ``_omp_impl``; the Gram form ignores it, as the
     reference's does).
+    ``precision`` is accepted for the reference's signature and ignored:
+    the port's numerics are always full float32.
     """
+    del precision
     device = resolve_device(device, D, X)
     D = _as_f32(D, device)
     X = _as_f32(X, device)
@@ -396,11 +399,14 @@ def batch_omp(D, X, T: int, eps: float | None = None, *,
     return res.dense(K) if dense else res
 
 
-def omp(D, X, T: int, eps: float | None = None, *, dense: bool = True,
-        corr_dtype: str = "f32", fused: bool = True, device=None):
+def omp(D, X, T: int, eps: float | None = None, *, precision=None,
+        dense: bool = True, corr_dtype: str = "f32", fused: bool = True,
+        device=None):
     """Orthogonal Matching Pursuit with explicit residual (oracle.omp).
     ``fused=False`` forces the batched form on any device; ``corr_dtype``
-    as in ``batch_omp``."""
+    as in ``batch_omp``.  ``precision`` is accepted for the reference's
+    signature and ignored: the port's numerics are always full float32."""
+    del precision
     device = resolve_device(device, D, X)
     D = _as_f32(D, device)
     X = _as_f32(X, device)
@@ -644,11 +650,14 @@ def threshold_code(D, X, lam: float, kind: str = "soft", *, device=None):
 
 
 def masked_omp(D, X, M, T: int, eps: float | None = None, *,
-               dense: bool = True, device=None):
+               precision=None, dense: bool = True, device=None):
     """Masked (inpainting) OMP: each lane's pursuit over its observed
     coordinates (oracle.masked_omp).  M: (p, N) 0/1 observation mask.
     Returns Gamma (K, N) if dense, else GreedyResult.  Inputs go to
-    ``device`` (default: where the first tensor input lies, else the GPU)."""
+    ``device`` (default: where the first tensor input lies, else the GPU).
+    ``precision`` is accepted for the reference's signature and ignored:
+    the port's numerics are always full float32."""
+    del precision
     device = resolve_device(device, D, X, M)
     D = _as_f32(D, device)
     X = _as_f32(X, device)
@@ -815,8 +824,8 @@ def _nn_omp_impl_unrolled(D, X, *, T, nnls_rounds):
                         nsel)
 
 
-def nn_omp(D, X, T: int, *, nnls_rounds: int = 4, dense: bool = True,
-           unroll: bool | None = None, device=None):
+def nn_omp(D, X, T: int, *, nnls_rounds: int = 4, precision=None,
+           dense: bool = True, unroll: bool | None = None, device=None):
     """Non-negative OMP (oracle.nn_omp): positive-correlation selection and
     a bounded active-set NNLS per step (prune-only Lawson-Hanson,
     ``nnls_rounds`` solve/prune passes).  Returns Gamma (K, N) >= 0, or a
@@ -825,7 +834,9 @@ def nn_omp(D, X, T: int, *, nnls_rounds: int = 4, dense: bool = True,
     ``unroll=None`` takes the unrolled-step form for T <= 12 and the scan
     form above, as the reference does; the two round differently.  Inputs
     go to ``device`` (default: where the first tensor input lies, else the
-    GPU)."""
+    GPU).  ``precision`` is accepted for the reference's signature and
+    ignored: the port's numerics are always full float32."""
+    del precision
     device = resolve_device(device, D, X)
     D = _as_f32(D, device)
     X = _as_f32(X, device)

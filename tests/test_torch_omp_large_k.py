@@ -17,7 +17,7 @@ from lyssandra_tpu import oracle
 from lyssandra_tpu.ops.pallas_omp import omp_fused as pallas_omp_fused
 from lyssandra_tpu_torch import _build
 from lyssandra_tpu_torch.ops import (
-    cuda_gram, cuda_omp, launch_counts, reset_launch_counts,
+    cuda_gram, cuda_omp, cuda_select, launch_counts, reset_launch_counts,
 )
 from lyssandra_tpu_torch.solvers import greedy
 from tests.conftest import make_problem
@@ -40,7 +40,13 @@ _ROUTES = [
     ((513, 20000, 8), "plain"),      # p above the reference's gate
     ((768, 11553, 10), "plain"),
     ((768, 256, 10), "gram"),        # the Gram form has no cap on p
-    ((64, 20000, 200), "plain"),     # the factor does not fit shared memory
+    ((64, 20000, 800), "plain"),     # a tile of lanes' state exceeds the
+    #                                  chunk budget
+    ((64, 20000, 723), "residual"),  # the largest T at p=64
+    ((64, 20000, 724), "plain"),
+    ((512, 20000, 1022), "residual"),  # 64-lane selection tiles above 256
+    ((512, 20000, 1023), "plain"),
+    ((512, 10753, 100), "residual"),
 ]
 
 
@@ -74,44 +80,88 @@ def test_route_of_tensors_and_fused_supported(monkeypatch):
                                        torch.empty((513, 4)), 8)
 
 
+# the envelope chip_smoke.py holds on the card: p up to 512, T up to 100
+# (p=64) and 48 (p=512)
+_ENVELOPE = [(p, T) for p in (1, 8, 21, 64, 256, 257, 512)
+             for T in (1, 3, 8, 10, 32, 48, 100)]
+
+
 @pytest.mark.parametrize("p, T, want", [
-    (64, 8, 4 * (128 + 64 + 48 + 8)),
-    (21, 3, 4 * (48 + 9 + 18 + 8)),
-    (512, 32, 4 * (1024 + 1024 + 192 + 8)),
-    (512, 10, 4 * (1024 + 100 + 60 + 8)),
+    (64, 8, 4 * (128 + 64 + 8 + 3)),
+    (21, 3, 4 * (42 + 9 + 3 + 3)),
+    (512, 32, 4 * (1024 + 1024 + 32 + 3)),
+    (64, 100, 4 * (128 + 10000 + 100 + 3)),
 ])
-def test_residual_lane_smem_bytes(p, T, want):
-    # x and r (p rounded up to 8 each), the T x T factor, six T-vectors and
-    # four partial maxima (value, index); nothing grows with K
-    assert cuda_omp.residual_lane_smem_bytes(p, T) == want
-    assert cuda_omp.residual_block_smem_bytes(p, T, 16) == \
-        4 * 2 * 8 * 512 + 16 * want
+def test_residual_lane_bytes(p, T, want):
+    # x^T and r, Linv, a0, two list slots and the pick; nothing grows with K
+    assert cuda_omp.residual_lane_bytes(p, T) == want
 
 
-def test_residual_envelope():
-    assert cuda_omp.residual_block_lanes(64, 8) == 16
-    assert cuda_omp.residual_block_lanes(512, 32) == 16   # 176,640 bytes
-    assert cuda_omp.residual_block_lanes(512, 48) == 8
-    assert cuda_omp.residual_block_lanes(64, 100) == 4
-    assert cuda_omp.residual_block_lanes(64, 120) == 0
-    for K in (1, 12305, 65536, 10 ** 7):
-        assert cuda_omp.residual_kernel_supports(64, K, 8)
-        assert cuda_omp.residual_kernel_supports(512, K, 32)
-    assert not cuda_omp.residual_kernel_supports(64, 0, 8)
-    assert not cuda_omp.residual_kernel_supports(64, 1024, 0)
-    for p, T in ((64, 8), (512, 32), (512, 48), (64, 100)):
-        lanes = cuda_omp.residual_block_lanes(p, T)
-        assert cuda_omp.residual_block_smem_bytes(p, T, lanes) <= \
-            _build.SMEM_PER_BLOCK
+@pytest.mark.parametrize("p, T", _ENVELOPE)
+def test_residual_chunk_lanes_over_the_envelope(p, T):
+    rows = cuda_select.block_rows(p)
+    lanes = cuda_omp.residual_chunk_lanes(p, T)
+    per_lane = cuda_omp.residual_lane_bytes(p, T)
+    # whole selection tiles, as many as the state budget holds
+    assert lanes > 0 and lanes % rows == 0
+    assert lanes * per_lane <= cuda_omp._STATE_BYTES
+    assert (lanes + rows) * per_lane > cuda_omp._STATE_BYTES
+    assert cuda_omp.residual_kernel_supports(p, 16384, T)
+    assert cuda_omp.residual_step_smem_bytes(T) <= _build.SMEM_PER_BLOCK
+
+
+def test_residual_chunk_lanes_at_the_main_shapes():
+    # path (t) and SRC's predict are one chunk each; the envelope's widest
+    # factors take a few
+    assert cuda_omp.residual_chunk_lanes(64, 8) == 330496
+    assert cuda_omp.residual_chunk_lanes(64, 10) >= 32768
+    assert cuda_omp.residual_chunk_lanes(64, 100) == 6528
+    assert cuda_omp.residual_chunk_lanes(512, 48) == 19840
+    assert cuda_omp.residual_chunk_lanes(64, 724) == 0
+    assert cuda_omp.residual_step_smem_bytes(8) == 4 * 8 * 5 * 8
+
+
+@pytest.mark.parametrize("p, K, lanes, want", [
+    (64, 16384, 32768, (5, 26)),     # path (t): 256 lane tiles
+    (64, 16800, 7200, (19, 7)),      # SRC's predict on (n2): 57 tiles
+    (64, 16384, 8192, (16, 8)),      # (s2)'s replicated omp
+    (64, 16384, 256, (32, 4)),       # (t)'s grid: at least 4 atom tiles
+    (512, 65536, 256, (128, 4)),     # 64-lane tiles above p=256
+    (64, 1, 100, (1, 1)),
+    (64, 1000, 10 ** 6, (1, 8)),     # lane tiles enough: no split
+])
+def test_residual_splits(p, K, lanes, want):
+    assert cuda_omp.residual_splits(p, K, lanes, 132) == want
+
+
+@pytest.mark.parametrize("p, K", [(1, 1), (64, 129), (64, 12305),
+                                  (64, 16384), (512, 65536), (300, 1000003)])
+@pytest.mark.parametrize("lanes", [1, 128, 7200, 32768, 330496])
+def test_residual_splits_cover_the_atoms(p, K, lanes):
+    # the ranges cover every atom tile once, none empty, each at least
+    # _MIN_SPLIT_TILES tiles long or the whole of K
+    nk = -(-K // 128)
+    splits, tiles = cuda_omp.residual_splits(p, K, lanes, 132)
+    assert (splits - 1) * tiles < nk <= splits * tiles
+    assert tiles >= min(nk, cuda_omp._MIN_SPLIT_TILES)
+    row_blocks = -(-lanes // cuda_select.block_rows(p))
+    # split only while the lane tiles alone fill fewer blocks than wanted
+    assert (splits - 1) * row_blocks < cuda_omp._SPLIT_BLOCKS * 132
 
 
 def _stub_cuda(monkeypatch):
     """CUDA-looking meta tensors and a stand-in kernel library that records
-    each call's arguments."""
+    each call's name and arguments."""
     calls = []
+
+    def record(name):
+        return lambda *a: calls.append((name, a)) or 0
+
     lib = types.SimpleNamespace(
-        lyssa_omp_residual=lambda *a: calls.append(("residual", a)) or 0,
-        lyssa_omp_fused=lambda *a: calls.append(("gram", a)) or 0)
+        lyssa_omp_residual_init=record("init"),
+        lyssa_select_rows=record("select"),
+        lyssa_omp_residual_step=record("step"),
+        lyssa_omp_fused=record("gram"))
 
     def gram(A, B, *, symmetric=False):
         cuda_gram.gram.launches += 1
@@ -120,6 +170,7 @@ def _stub_cuda(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(cuda_omp._build, "load", lambda: lib)
     monkeypatch.setattr(cuda_omp, "gram", gram)
+    monkeypatch.setattr(cuda_omp, "_sm_count", lambda index: 132)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -129,6 +180,8 @@ def _stub_cuda(monkeypatch):
 
 @pytest.mark.parametrize("eps_mode", [False, True])
 def test_residual_wrapper_launches_once_without_gram(monkeypatch, eps_mode):
+    # one chunk: one init launch, then a selection and a step launch a
+    # step; no G, no Gram-form launch, and nothing read back to the host
     calls = _stub_cuda(monkeypatch)
     D = torch.empty((64, 16384), device="meta")
     X = torch.empty((64, 1000), device="meta")
@@ -138,16 +191,62 @@ def test_residual_wrapper_launches_once_without_gram(monkeypatch, eps_mode):
     counts = launch_counts()
     mode = "eps" if eps_mode else "t"
     assert counts[f"omp_residual_{mode}"] == 1
-    assert sum(counts.values()) == 1                   # no G, no K1/K2
+    assert counts["omp_residual_select"] == counts["omp_residual_update"] \
+        == 10
+    assert sum(counts.values()) == 21                  # no G, no K1/K2
     assert tuple(idx.shape) == (1000, 10) and tuple(nsel.shape) == (1000,)
-    ((kind, args),) = calls
-    # p, K, N, T, eps^2, eps_mode, lanes
-    assert kind == "residual"
-    assert args[3:10] == (64, 16384, 1000, 10, 4.0, int(eps_mode), 16)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_omp.omp_residual_fused(D, X, T=400)
+    assert [c[0] for c in calls] == ["init"] + ["select", "step"] * 10
+    # init: p, N, n0, lanes, eps^2, eps_mode
+    assert calls[0][1][1:7] == (64, 1000, 0, 1000, 4.0, int(eps_mode))
+    splits, tiles = cuda_omp.residual_splits(64, 16384, 1000, 132)
+    for t in range(10):
+        sel, step = calls[1 + 2 * t][1], calls[2 + 2 * t][1]
+        # selection: p, K, the chunk's capacity, splits, tiles; its list
+        # and count are the step's input
+        assert sel[4:9] == (64, 16384, 1000, splits, tiles)
+        assert (sel[1], sel[2]) == (step[8], step[9])
+        # step: splits, p, capacity, T, t, eps^2, eps_mode; the last step
+        # lists no lane
+        assert step[7] == splits
+        assert step[12:18] == (64, 1000, 10, t, 4.0, int(eps_mode))
+        assert (step[10] is None) == (step[11] is None) == (t == 9)
+        if t < 9:       # the next step reads the list this one writes
+            nxt = calls[3 + 2 * t][1]
+            assert (nxt[1], nxt[2]) == (step[10], step[11])
+    with pytest.raises(ValueError, match="chunk of lanes"):
+        cuda_omp.omp_residual_fused(D, X, T=800)
+    with pytest.raises(ValueError, match="p <= 512"):
+        cuda_omp.omp_residual_fused(torch.empty((513, 16384), device="meta"),
+                                    torch.empty((513, 10), device="meta"),
+                                    T=8)
     with pytest.raises(ValueError, match="float32"):
         cuda_omp.omp_residual_fused(D.double(), X, T=8)
+
+
+def test_residual_wrapper_codes_in_chunks(monkeypatch):
+    # T=100 at p=64 holds 6,528 lanes a chunk: 20,000 lanes are 4 chunks,
+    # each with its own init at its first lane and zeroed counts
+    calls = _stub_cuda(monkeypatch)
+    D = torch.empty((64, 16384), device="meta")
+    X = torch.empty((64, 20000), device="meta")
+    reset_launch_counts()
+    cuda_omp.omp_residual_fused(D, X, T=100)
+    counts = launch_counts()
+    assert counts["omp_residual_t"] == 4
+    assert counts["omp_residual_select"] == \
+        counts["omp_residual_update"] == 400
+    inits = [a for name, a in calls if name == "init"]
+    cap = cuda_omp.residual_chunk_lanes(64, 100)
+    assert [(a[3], a[4]) for a in inits] == [
+        (0, cap), (cap, cap), (2 * cap, cap), (3 * cap, 20000 - 3 * cap)]
+    # each chunk's outputs start at its first lane: err and nsel at n0,
+    # idx and gamma at n0 * T
+    for a, n0 in zip(inits, (0, cap, 2 * cap, 3 * cap)):
+        assert a[9] - inits[0][9] == 4 * n0
+    steps = [a for name, a in calls if name == "step"]
+    assert steps[100][18] - steps[0][18] == 4 * cap * 100
+    # every step of every chunk sizes its grid by the capacity
+    assert {a[13] for a in steps} == {cap}
 
 
 @pytest.mark.parametrize("entry", ["batch_omp", "omp", "encoder", "src"])
@@ -177,7 +276,9 @@ def test_entry_points_take_the_route(monkeypatch, entry):
             src = SRCClassifier(T=8, normalize=False, device=dev)
             src._set_dictionary(D, np.arange(K) % 3)
             src.residuals(X)
-        assert [c[0] for c in calls] == [kind], (K, calls)
+        want = (["gram"] if kind == "gram"
+                else ["init"] + ["select", "step"] * 8)
+        assert [c[0] for c in calls] == want, (K, calls)
         counts = launch_counts()
         assert counts["gram"] == (kind == "gram")
         mode = "eps" if entry == "omp" else "t"

@@ -225,7 +225,8 @@ def test_launch_counters_stay_zero_on_cpu(rng):
                         stride=2).transform(torch.randn(2, 12, 12))
     assert lt.launch_counts() == {
         "omp_fused_t": 0, "omp_fused_eps": 0, "omp_residual_t": 0,
-        "omp_residual_eps": 0, "fused_patches": 0, "group_omp_fused": 0,
+        "omp_residual_eps": 0, "omp_residual_select": 0,
+        "omp_residual_update": 0, "fused_patches": 0, "group_omp_fused": 0,
         "fs_cold": 0, "select_abs_argmax": 0, "gram": 0}
 
 
@@ -258,3 +259,111 @@ def test_denoiser_from_reference_takes_reference_config():
     assert dataclasses.asdict(den.cfg) == dataclasses.asdict(cfg)
     with pytest.raises(TypeError):
         denoiser_from_reference(np.eye(64), {"not_a_field": 1}, "cpu")
+
+
+# reference parameters the port does not take, by callable, each with its
+# reason: none are expected
+SIGNATURE_EXCEPTIONS: dict[str, tuple[str, ...]] = {}
+
+
+def _reference_callables():
+    """(case id, reference callable, port callable) for every public
+    callable of the reference's top level and SUBPACKAGES, and every public
+    method (and ``__init__``) of its classes."""
+    import importlib
+    import inspect
+
+    cases = []
+    for sub in [""] + SUBPACKAGES:
+        ref = importlib.import_module(
+            "lyssandra_tpu" + ("." + sub if sub else ""))
+        ours = importlib.import_module(
+            "lyssandra_tpu_torch" + ("." + sub if sub else ""))
+        for name in dir(ref):
+            r = getattr(ref, name)
+            if (name.startswith("_") or inspect.ismodule(r)
+                    or not callable(r)):
+                continue
+            o = getattr(ours, name, None)
+            cases.append((f"{sub or 'top'}:{name}", r, o))
+            if inspect.isclass(r):
+                for m in vars(r):
+                    if m.startswith("_") and m != "__init__":
+                        continue
+                    if not callable(getattr(r, m)):
+                        continue
+                    cases.append((f"{sub or 'top'}:{name}.{m}",
+                                   getattr(r, m), getattr(o, m, None)))
+    return cases
+
+
+_CALLABLES = _reference_callables()
+
+
+@pytest.mark.parametrize("case, ref, ours", _CALLABLES,
+                         ids=[c[0] for c in _CALLABLES])
+def test_port_accepts_every_reference_keyword(case, ref, ours):
+    import inspect
+
+    assert ours is not None, f"{case} is not in the port"
+    rp = inspect.signature(ref).parameters
+    op = inspect.signature(ours).parameters
+    var_kw = any(v.kind is v.VAR_KEYWORD for v in op.values())
+    missing = tuple(
+        n for n, v in rp.items()
+        if n not in op and not (var_kw and v.kind is not v.VAR_POSITIONAL))
+    assert missing == SIGNATURE_EXCEPTIONS.get(case, ()), (
+        f"{case}: the port refuses the reference's {missing}")
+
+
+@pytest.mark.parametrize("fn", ["dct_dictionary", "dct_dictionary_color",
+                                "init_dictionary"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_dictionary_dtype_matches_reference(fn, dtype):
+    import jax.numpy as jnp
+
+    import lyssandra_tpu.ops.dictionaries as jdict
+
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.float64
+    if fn == "init_dictionary":
+        X = np.zeros((3 * 8 * 8, 5))
+        got = lt.init_dictionary(torch.as_tensor(X), 64, "dct", dtype=dtype)
+        want = jdict.init_dictionary(X, 64, "dct", dtype=jnp.float32)
+    else:
+        got = getattr(lt.ops, fn)(8, 64, dtype=dtype, device="cpu")
+        want = getattr(jdict, fn)(8, 64, dtype=jdtype)
+    assert got.dtype == dtype and got.device.type == "cpu"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float64),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["random", "data"])
+def test_init_dictionary_dtype(method, rng):
+    X = torch.as_tensor(rng.standard_normal((16, 40)), dtype=torch.float32)
+    D32 = lt.init_dictionary(X, 24, method, seed=2)
+    D64 = lt.init_dictionary(X, 24, method, seed=2, dtype=torch.float64)
+    assert D32.dtype == torch.float32 and D64.dtype == torch.float64
+    np.testing.assert_allclose(D64.numpy(), D32.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(torch.linalg.vector_norm(D64, dim=0).numpy(),
+                               1.0, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("fn", ["batch_omp", "omp", "nn_omp", "masked_omp"])
+def test_precision_keyword_is_ignored(fn, rng):
+    import jax
+
+    D = rng.standard_normal((16, 40))
+    D /= np.linalg.norm(D, axis=0)
+    X = rng.standard_normal((16, 30))
+    args = (torch.as_tensor(D, dtype=torch.float32),
+            torch.as_tensor(X, dtype=torch.float32))
+    if fn == "masked_omp":
+        args += (torch.as_tensor(rng.random((16, 30)) > 0.3,
+                                 dtype=torch.float32),)
+    call = getattr(lt.solvers, fn)
+    want = call(*args, 4, dense=False)
+    for precision in ("highest", jax.lax.Precision.HIGHEST, None):
+        got = call(*args, 4, precision=precision, dense=False)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)

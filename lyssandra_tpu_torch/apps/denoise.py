@@ -41,6 +41,7 @@ from lyssandra_tpu_torch.solvers.greedy import (
     batch_omp,
 )
 from lyssandra_tpu_torch.utils.datasets import patch_dataset
+from lyssandra_tpu_torch.utils.profiling import span, spanned
 
 
 def _eps_two_phase(D, Xc, *, eps, T1, T_max, cap=4096, order="raster"):
@@ -51,7 +52,9 @@ def _eps_two_phase(D, Xc, *, eps, T1, T_max, cap=4096, order="raster"):
     compacted, ``cap`` at a time, and re-solved from scratch at T_max with
     the batched residual form.  Greedy pursuit is deterministic, so the
     re-solve equals a single pass at T_max on those lanes.  The loop asks
-    the device one question per round: are any lanes left.
+    the device one question per round: how many lanes are left.  Phase 2,
+    after the first count, is the span ``lyssa.denoise.phase2``, whose
+    ``lanes`` is that count.
     """
     K = D.shape[1]
     N = Xc.shape[1]
@@ -68,7 +71,11 @@ def _eps_two_phase(D, Xc, *, eps, T1, T_max, cap=4096, order="raster"):
     if order == "energy":
         res = GreedyResult(*(f[inv] for f in res))
         Xc = Xc[:, inv]
-    bad = (res.nsel == T1) & (res.err > eps * eps)
+    # the lanes left as 0/1 int32, so that a count of them is one reduction
+    # (a bool mask's sum would first cast it) and each round's question
+    # launches no more than asking for any lane would
+    bad = torch.logical_and(res.nsel == T1, res.err > eps * eps,
+                            out=torch.empty(N, dtype=torch.int32, device=dev))
     # one spare all-zero lane N takes the writes of unused compaction
     # slots (the reference's scatter mode="drop"); padding the compact
     # result, not the dense (K, N) Gamma, avoids copying Gamma
@@ -77,18 +84,21 @@ def _eps_two_phase(D, Xc, *, eps, T1, T_max, cap=4096, order="raster"):
     )).dense(K)
     slots = torch.arange(cap, device=dev)
     lanes = torch.arange(N, device=dev)
-    while bool(bad.any()):
-        pos = torch.cumsum(bad, dim=0) - 1               # rank among bad
-        sel = bad & (pos < cap)
-        # cols[j] = column of the j-th selected lane; unselected lanes
-        # write into the spare slot `cap`, which is dropped
-        cols = torch.zeros((cap + 1,), dtype=torch.long, device=dev)
-        cols.scatter_(0, torch.where(sel, pos, cap), lanes)
-        cols = cols[:cap]
-        rs = _omp_impl(D, Xc[:, cols], eps, T=T_max, eps_mode=True)
-        colsafe = torch.where(slots < sel.sum(), cols, N)
-        Gamma[:, colsafe] = rs.dense(K)
-        bad = bad & ~sel
+    left = int(bad.sum(dtype=torch.int32))
+    with span("lyssa.denoise.phase2", lanes=left):
+        while left:
+            pos = torch.cumsum(bad, dim=0) - 1           # rank among bad
+            sel = torch.logical_and(bad, pos < cap)
+            # cols[j] = column of the j-th selected lane; unselected lanes
+            # write into the spare slot `cap`, which is dropped
+            cols = torch.zeros((cap + 1,), dtype=torch.long, device=dev)
+            cols.scatter_(0, torch.where(sel, pos, cap), lanes)
+            cols = cols[:cap]
+            rs = _omp_impl(D, Xc[:, cols], eps, T=T_max, eps_mode=True)
+            colsafe = torch.where(slots < sel.sum(), cols, N)
+            Gamma[:, colsafe] = rs.dense(K)
+            torch.logical_and(bad, ~sel, out=bad)
+            left = int(bad.sum(dtype=torch.int32))
     return Gamma[:, :N]
 
 
@@ -113,6 +123,7 @@ class Denoiser:
     GPU; see ``_device.resolve_device``).  Noisy images go to D's device.
     With a ``mesh``, D lies on its first slot and the patches are coded
     over its data slots; a ``device`` other than the first slot's raises.
+    Each call is the span ``lyssa.denoise`` (``utils.profiling``).
     """
 
     def __init__(self, D, cfg: DenoiseConfig = DenoiseConfig(), *,
@@ -138,6 +149,7 @@ class Denoiser:
                 and (not self.D.is_cuda or _fused_supported(self.D, self.D,
                                                             T1)))
 
+    @spanned("lyssa.denoise")
     def __call__(self, noisy, sigma: float | None = None) -> torch.Tensor:
         cfg = self.cfg
         sigma = float(cfg.sigma if sigma is None else sigma)
@@ -175,6 +187,7 @@ def denoise(noisy, D, sigma: float, *, cfg: DenoiseConfig | None = None,
     return Denoiser(D, cfg, mesh=mesh, device=device)(noisy, sigma)
 
 
+@spanned("lyssa.denoise_adaptive")
 def denoise_adaptive(noisy, sigma: float, *, cfg: DenoiseConfig | None = None,
                      K: int = 256, n_iter: int = 12, n_train: int = 30000,
                      mesh=None, return_dictionary: bool = False,
@@ -185,7 +198,9 @@ def denoise_adaptive(noisy, sigma: float, *, cfg: DenoiseConfig | None = None,
     (default: where ``noisy`` lies if it is a tensor, else the GPU), or
     with a ``mesh`` over its slots: the mesh goes to the encoder, the
     learner and the denoiser.  Returns the image, and with
-    ``return_dictionary`` also D."""
+    ``return_dictionary`` also D.  The call is the span
+    ``lyssa.denoise_adaptive`` (``utils.profiling``); its self time is the
+    host copy of the image, the patch sample and the builds."""
     if mesh is not None:
         device = mesh_device(mesh, device)
     device = resolve_device(device, noisy)

@@ -38,6 +38,7 @@ from lyssandra_tpu_torch.ops.dictionaries import (
 from lyssandra_tpu_torch.parallel.mesh import mesh_device
 from lyssandra_tpu_torch.solvers.encoder import SparseEncoder
 from lyssandra_tpu_torch.solvers.greedy import GreedyResult
+from lyssandra_tpu_torch.utils.profiling import span, spanned
 
 
 def _block_size(K: int, atom_block: int) -> int:
@@ -186,24 +187,28 @@ def _ksvd_compact_post(X, D, idx, gamma, code_err, *, exact, svd_iters,
     """The post-coding tail of a compact K-SVD iteration: atom sweep,
     stats, dead-atom replacement, normalization, all on compact codes.
     Returns (D, gamma, err (N,), stats (5,))."""
-    D, gamma, nusers = ksvd_atom_update_compact(
-        X, D, idx, gamma, exact=exact, svd_iters=svd_iters,
-        atom_block=atom_block)
-    R = _compact_residual(X, D, idx.long(), gamma)
-    RR = R * R
-    err = RR.sum(dim=0)
-    stats = [err.sum(), torch.sqrt(RR.mean()),
-             (gamma != 0).sum(dim=1).to(X.dtype).mean()]
-    if replace_dead:
-        D, bad = replacement_atoms(X, D, err, nusers, min_use, max_coherence)
-        gamma = torch.where(bad[idx.long()], 0.0, gamma)
-        stats.append(bad.sum().to(X.dtype))
-    else:
-        stats.append(torch.zeros((), dtype=X.dtype, device=X.device))
-    stats.append(code_err.sum())          # post-coding objective
-    return normalize_atoms(D), gamma, err, torch.stack(stats)
+    with span("lyssa.ksvd.sweep"):
+        D, gamma, nusers = ksvd_atom_update_compact(
+            X, D, idx, gamma, exact=exact, svd_iters=svd_iters,
+            atom_block=atom_block)
+    with span("lyssa.ksvd.post"):
+        R = _compact_residual(X, D, idx.long(), gamma)
+        RR = R * R
+        err = RR.sum(dim=0)
+        stats = [err.sum(), torch.sqrt(RR.mean()),
+                 (gamma != 0).sum(dim=1).to(X.dtype).mean()]
+        if replace_dead:
+            D, bad = replacement_atoms(X, D, err, nusers, min_use,
+                                       max_coherence)
+            gamma = torch.where(bad[idx.long()], 0.0, gamma)
+            stats.append(bad.sum().to(X.dtype))
+        else:
+            stats.append(torch.zeros((), dtype=X.dtype, device=X.device))
+        stats.append(code_err.sum())          # post-coding objective
+        return normalize_atoms(D), gamma, err, torch.stack(stats)
 
 
+@spanned("lyssa.ksvd.post")
 def _ksvd_dense_post(X, D, Gamma, obj_code, cfg: KSVDConfig):
     """The tail of a dense K-SVD iteration after the sweep: stats of the
     post-sweep model, dead-atom replacement (the replaced atoms' code rows
@@ -249,9 +254,10 @@ def ksvd_step(X, D, encoder: SparseEncoder, cfg: KSVDConfig):
     Gamma = encoder.encode(X, D)
     Rc = X - D @ Gamma
     obj_code = (Rc * Rc).sum()
-    D, Gamma = ksvd_atom_update(
-        X, D, Gamma, exact=cfg.exact_svd, svd_iters=cfg.svd_iters,
-        atom_block=cfg.atom_block)
+    with span("lyssa.ksvd.sweep"):
+        D, Gamma = ksvd_atom_update(
+            X, D, Gamma, exact=cfg.exact_svd, svd_iters=cfg.svd_iters,
+            atom_block=cfg.atom_block)
     return _ksvd_dense_post(X, D, Gamma, obj_code, cfg)
 
 
@@ -291,8 +297,15 @@ class KSVDLearner:
         self.checkpoint_every = checkpoint_every
         self.history_: list[dict[str, Any]] = []
 
+    @spanned("lyssa.ksvd.fit")
     def fit(self, X, D0=None, n_iter: int | None = None,
             resume: bool = False) -> "KSVDLearner":
+        """Learn ``D_`` from X (p, N).  The fit is the span
+        ``lyssa.ksvd.fit``, each iteration with its metrics
+        ``lyssa.ksvd.iteration``, inside which the coding is
+        ``lyssa.encode`` and the step's sweep and post-sweep tail
+        ``lyssa.ksvd.sweep`` and ``lyssa.ksvd.post`` (``utils.profiling``).
+        """
         device = resolve_device(self.device, X, D0)
         X = torch.as_tensor(X, dtype=torch.float32, device=device)
         cfg = self.cfg
@@ -322,27 +335,29 @@ class KSVDLearner:
         pending: list[tuple[int, torch.Tensor, float]] = []
         t_fit0 = time.perf_counter()
         for it in range(start, total):
-            t0 = time.perf_counter()
-            D, Gamma, stats = step_fn(X, D, self.encoder, cfg)
-            if eager_metrics:
-                metrics = _stats_to_metrics(stats.cpu().numpy())
-                metrics["seconds"] = time.perf_counter() - t0
-                metrics["patches_per_sec"] = X.shape[1] / metrics["seconds"]
-                metrics["iter"] = it
-                self.history_.append(metrics)
-                if self.verbose:
-                    print(f"[ksvd it {it}] {metrics}")
-                if self.callback is not None:
-                    self.callback(it, metrics)
-                if self.workspace is not None:
-                    self.workspace.log_metrics(metrics)
-                    if (it + 1) % self.checkpoint_every == 0 \
-                            or it == total - 1:
-                        self.workspace.save_state(
-                            it, {"D": D,
-                                 "iter": torch.tensor(it, dtype=torch.int32)})
-            else:
-                pending.append((it, stats, time.perf_counter() - t0))
+            with span("lyssa.ksvd.iteration"):
+                t0 = time.perf_counter()
+                D, Gamma, stats = step_fn(X, D, self.encoder, cfg)
+                if eager_metrics:
+                    metrics = _stats_to_metrics(stats.cpu().numpy())
+                    metrics["seconds"] = time.perf_counter() - t0
+                    metrics["patches_per_sec"] = (X.shape[1]
+                                                  / metrics["seconds"])
+                    metrics["iter"] = it
+                    self.history_.append(metrics)
+                    if self.verbose:
+                        print(f"[ksvd it {it}] {metrics}")
+                    if self.callback is not None:
+                        self.callback(it, metrics)
+                    if self.workspace is not None:
+                        self.workspace.log_metrics(metrics)
+                        if (it + 1) % self.checkpoint_every == 0 \
+                                or it == total - 1:
+                            self.workspace.save_state(it, {
+                                "D": D,
+                                "iter": torch.tensor(it, dtype=torch.int32)})
+                else:
+                    pending.append((it, stats, time.perf_counter() - t0))
         if Gamma is None:                     # fully resumed: re-code once
             Gamma = self.encoder.encode(X, D, dense=not compact)
         if pending:

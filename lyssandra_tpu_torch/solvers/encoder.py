@@ -33,6 +33,7 @@ from lyssandra_tpu_torch.parallel.mesh import (
 from lyssandra_tpu_torch.solvers import greedy
 from lyssandra_tpu_torch.solvers.lasso import feature_sign, fista, lars
 from lyssandra_tpu_torch.solvers.llc import llc
+from lyssandra_tpu_torch.utils.profiling import span, spanned
 
 _THRESHOLDING = ("thresholding", "soft_thresholding", "hard_thresholding")
 _CONVEX = ("lasso", "feature_sign", "fss", "lars", "lasso_lars")
@@ -125,12 +126,16 @@ class SparseEncoder:
 
     # -- public API --------------------------------------------------------
 
+    @spanned("lyssa.encode")
     def encode(self, X, D, *, dense: bool = True):
         """Encode X (p, N) over D (p, K).
 
         dense=True: dense code matrix Gamma (K, N).
         dense=False (greedy routes only): compact GreedyResult with
         idx/gamma (N, T), without the (K, N) scatter.
+
+        The call is the span ``lyssa.encode``, each block's solver call the
+        span ``lyssa.encode.block`` (``utils.profiling``).
         """
         if not dense and self.algorithm not in self._COMPACT:
             raise ValueError(
@@ -156,13 +161,15 @@ class SparseEncoder:
             Ds = row_copies(D, self.mesh)
 
             def call(Xb):
-                outs = map_data(lambda d, x: solver(d, x, **kw), Ds, Xb,
-                                self.mesh)
-                return (torch.cat(outs, dim=1) if dense
-                        else greedy.GreedyResult.concatenate(outs))
+                with span("lyssa.encode.block"):
+                    outs = map_data(lambda d, x: solver(d, x, **kw), Ds, Xb,
+                                    self.mesh)
+                    return (torch.cat(outs, dim=1) if dense
+                            else greedy.GreedyResult.concatenate(outs))
         else:
             def call(Xb):
-                return solver(D, Xb, **kw)
+                with span("lyssa.encode.block"):
+                    return solver(D, Xb, **kw)
         if N <= self.block:
             return call(X)
 

@@ -12,6 +12,9 @@ the atoms, in order:
 
     d_k <- proj_{||.||<=1}( d_k + (b_k - D a_k) / A_kk ).
 
+``minibatch_update`` is that step for one minibatch; ``fit`` and
+``partial_fit`` call it once a minibatch, through this module's global.
+
 ``fit`` streams minibatches in chunks of ``chunk_batches``; a chunk is one
 metrics record and one checkpoint.  Its in-loop coder is
 ``feature_sign_scan`` (the plain loop: no kernel), ``partial_fit`` and
@@ -48,7 +51,9 @@ from lyssandra_tpu_torch.solvers.lasso import (
     feature_sign,
     feature_sign_scan,
     fista,
+    host_syncs,
 )
+from lyssandra_tpu_torch.utils.profiling import span, spanned
 
 
 class OnlineDLState(NamedTuple):
@@ -59,6 +64,7 @@ class OnlineDLState(NamedTuple):
     #                      the host keeps, so reading it never syncs)
 
 
+@spanned("lyssa.online.sweep")
 def _dict_update_body(D, A, B, n_sweeps: int):
     """``n_sweeps`` sweeps of atom updates over k = 0..K-1 in order, each
     seeing the atoms before it; an atom with A_kk < 1e-10 (no use yet)
@@ -115,6 +121,24 @@ def _code_stats(D, Xb, lam, coder, fs_opts, code_blocks, mesh=None):
             slot_sum(XG, D.device))
 
 
+@spanned("lyssa.online.step")
+def minibatch_update(D, A, B, Xb, code, beta: float, n_sweeps: int):
+    """The Mairal update of one minibatch Xb (p, bs): code it with
+    ``code(D, Xb)``, which returns (Gamma, Gamma Gamma^T, X Gamma^T); then
+    A <- beta A + Gamma Gamma^T, B <- beta B + X Gamma^T and ``n_sweeps``
+    atom sweeps.  Returns (D, A, B, Gamma); the inputs are not changed.
+    Reads nothing on the host beyond what ``code`` reads."""
+    with span("lyssa.online.code") as attrs:
+        s0 = None if attrs is None else host_syncs()
+        Gamma, GG, XG = code(D, Xb)
+        if attrs is not None:
+            attrs["syncs"] = host_syncs() - s0
+    A = beta * A + GG
+    B = beta * B + XG
+    D = _dict_update_body(D, A, B, n_sweeps)
+    return D, A, B, Gamma
+
+
 def _online_chunk(
     D, A, B, Xc, lam, beta,
     *, n_sweeps, coder, max_active, max_iter, max_inner, code_blocks=1,
@@ -130,13 +154,13 @@ def _online_chunk(
         max_active=max_active, max_iter=max_iter, max_inner=max_inner,
         warm_start=warm_start, cold_unroll=cold_unroll,
     )
+
+    def code(D, Xb):
+        return _code_stats(D, Xb, lam, coder, fs_opts, code_blocks, mesh)
+
     objs, nnzs = [], []
     for Xb in Xc:
-        Gamma, GG, XG = _code_stats(D, Xb, lam, coder, fs_opts, code_blocks,
-                                    mesh)
-        A = beta * A + GG
-        B = beta * B + XG
-        D = _dict_update_body(D, A, B, n_sweeps)
+        D, A, B, Gamma = minibatch_update(D, A, B, Xb, code, beta, n_sweeps)
         R = Xb - D @ Gamma
         objs.append((R * R).sum() + lam * Gamma.abs().sum())
         nnzs.append((Gamma.abs() > 1e-10).sum(dim=0).to(D.dtype).mean())
@@ -160,15 +184,16 @@ def online_dl_step(
     """One minibatch step; returns (new state, minibatch codes).  Xb goes
     to the state's device."""
     Xb = torch.as_tensor(Xb, dtype=torch.float32, device=state.D.device)
-    if coder == "feature_sign":
-        Gamma = feature_sign(state.D, Xb, cfg.lam)
-    elif coder == "fista":
-        Gamma = fista(state.D, Xb, cfg.lam)
-    else:
+    solvers = {"feature_sign": feature_sign, "fista": fista}
+    if coder not in solvers:
         raise ValueError(coder)
-    A = cfg.beta * state.A + Gamma @ Gamma.T
-    B = cfg.beta * state.B + Xb @ Gamma.T
-    D = _dict_update_body(state.D, A, B, cfg.n_sweeps)
+
+    def code(D, X):
+        Gamma = solvers[coder](D, X, cfg.lam)
+        return Gamma, Gamma @ Gamma.T, X @ Gamma.T
+
+    D, A, B, Gamma = minibatch_update(state.D, state.A, state.B, Xb, code,
+                                      cfg.beta, cfg.n_sweeps)
     return OnlineDLState(D, A, B, state.step + 1), Gamma
 
 
@@ -238,6 +263,7 @@ class OnlineDictionaryLearner:
             print(f"[online-dl] {m}")
         return self
 
+    @spanned("lyssa.online.fit")
     def fit(self, X, n_epochs: int = 1, seed: int = 0,
             holdout=None, *, workspace=None, resume: bool = False,
             checkpoint_every: int = 1) -> "OnlineDictionaryLearner":

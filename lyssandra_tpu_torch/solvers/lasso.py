@@ -31,6 +31,7 @@ import torch
 
 from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.solvers.greedy import _argmax_first, _as_f32
+from lyssandra_tpu_torch.utils.profiling import span
 
 
 class FeatureSignResult(NamedTuple):
@@ -596,8 +597,9 @@ def feature_sign(
             not on_gpu or _fs_cold_supported(D, X, t_unroll))
         cold_start = (_fs_unrolled_state_fused if fused
                       else _fs_unrolled_state)
-        state = cold_start(Dt, Xt, A0, lam, t_unroll=t_unroll,
-                        n_refine=int(n_refine), max_active=A_run)
+        with span("lyssa.fs.cold"):
+            state = cold_start(Dt, Xt, A0, lam, t_unroll=t_unroll,
+                               n_refine=int(n_refine), max_active=A_run)
     elif warm_start and warm_start > 0:
         if warm_seed == "omp":
             G0t = _fs_omp_seed_iterate(D, Xt, warm_start)

@@ -20,7 +20,15 @@ function):
 - ``lyssa.ksvd.sweep``: the atom sweep of a K-SVD iteration (the dense
   one is ``ksvd_atom_update``, whole); ``replayed``, 1 where the dense
   sweep ran as a replay of its CUDA graph, else 0;
-- ``lyssa.ksvd.post``: its stats, atom replacement and normalisation.
+- ``lyssa.ksvd.post``: its stats, atom replacement and normalisation;
+- ``lyssa.online.fit``: ``OnlineDictionaryLearner.fit``, whole;
+- ``lyssa.online.step``: ``dict_learning.online.minibatch_update``, the
+  Mairal update of one minibatch (``fit`` and ``partial_fit`` alike);
+- ``lyssa.online.code``: its coding; ``syncs``, the solvers' host reads
+  during it (the ``solvers.lasso.host_syncs()`` delta);
+- ``lyssa.online.sweep``: its atom sweep (``_dict_update_body``);
+- ``lyssa.fs.cold``: ``feature_sign``'s cold start (the fused kernel on a
+  GPU).
 
 While a torch profiler runs (``profile_trace``, or any
 ``torch.profiler.profile``), each span is a ``record_function`` range of
@@ -30,7 +38,9 @@ request, attrs), stamped with ``time.time_ns()`` inside the range.
 ``parent`` is the store index of the enclosing span of the same thread, or
 -1; a span opened under no other starts a new ``request`` id, which the
 spans inside it share.  The attributes are in the records only, not in the
-exported trace.  The store holds ``SPAN_CAPACITY`` records; past that,
+exported trace; ``with span(name) as attrs`` gives the open span's
+attribute dict (None with no profiler running), for a count known only at
+the end.  The store holds ``SPAN_CAPACITY`` records; past that,
 spans are dropped and counted (``dropped_spans()``).  ``clear_spans()``
 empties it; call it with no span open.
 
@@ -96,7 +106,7 @@ class _Span:
         self._range.__enter__()
         _STORE.open(self)
         self.start_ns = time.time_ns()
-        return None
+        return self.attrs
 
     def __exit__(self, *exc):
         self.end_ns = time.time_ns()

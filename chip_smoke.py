@@ -65,6 +65,21 @@ Phases, in order; any failure raises and exits non-zero:
      must raise) and its time at N=2048 and N=16384 (K4's and K6's times
      are the wrappers', product launches included), and the steps its
      lanes run (for its bound);
+  5d2. the feature-sign search kernel (csrc/fs_scan.cu, the online fit's
+     in-loop coder from the empty active set) against its plain version
+     (_fs_init + _fs_loop) at config 4's width (lam=0.15) on config 4's
+     patches at N=1024 and 4096, on the well-posed problem of 5d and on
+     its envelope problems (p=21, K=100; the coherent pair): per lane the
+     objective gap over the plain version's codes (median at most 1e-8,
+     max 2e-3), the KKT breach of the lanes done without overflow (median
+     at most 5e-5), done and overflow equal on >= 99% of lanes; lanes
+     done on entry (lam=1e3: zero codes), cut by max_iter=3, overflowing
+     at max_active=4; the envelope (the kernel's shared memory a lane
+     against the wrapper's formula; max_active=65 raises; the solver's
+     gate takes config 4's call and refuses n_activate=2, warm_start=4,
+     cold_unroll=28); its time (the wrapper's, two product launches
+     included) one call at a time and in a CUDA graph beside the plain
+     version's and its bound;
   5e. K7 (fused selection) against its plain version at p=64, K=1024 on
      the 262,144 Gaussian lanes, f32 and bf16: picks equal on >= 99.9% of
      lanes; exact ties (atom 7 = atom 3, and atom 128 = atom 127 across two
@@ -157,8 +172,9 @@ Phases, in order; any failure raises and exits non-zero:
      8x8x3 patches of the four synthetic colour images and 2,048 held out,
      K=1024, lam=0.15, batch 4,096, chunks of 8, code_blocks=4; one
      warm-up chunk, its host syncs counted in torch's sync debug mode,
-     then the timed epoch of 24 minibatches, ODL_CHUNKS chunks): no kernel
-     launch (its in-loop coder is the plain loop), the reference's history
+     then the timed epoch of 24 minibatches, ODL_CHUNKS chunks): one
+     fs_scan and two product launches a coding block (its in-loop coder
+     is the search kernel), the reference's history
      keys, the holdout objective falling, atoms in the unit ball; one more
      minibatch through _online_chunk from the learned state: A and B grow
      by Gamma Gamma^T and X Gamma^T (float64, 1e-4 of their norms), the
@@ -669,6 +685,18 @@ def lasso_kkt(torch, D, X, G, lam):
             float(grad.abs()[~act].max()))
 
 
+def lasso_kkt_lanes(torch, D, X, G, lam):
+    """Per lane, the widest breach of the lasso's optimality conditions in
+    float64: |grad + lam sign(g)| over the nonzeros, |grad| - lam over the
+    zeros."""
+    Gd = G.double()
+    grad = 2.0 * (D.double().T @ (D.double() @ Gd - X.double()))
+    act = Gd != 0
+    on = torch.where(act, (grad + lam * torch.sign(Gd)).abs(), 0.0)
+    off = torch.where(act, 0.0, (grad.abs() - lam).clamp_min(0.0))
+    return torch.maximum(on, off).amax(dim=0)
+
+
 def lasso_objectives(torch, D, X, G, lam):
     """Per-lane lasso objectives ||x - D g||^2 + lam ||g||_1, float64."""
     R = X.double() - D.double() @ G.double()
@@ -1083,8 +1111,12 @@ def learning_paths(torch, lt, dev):
     solver_syncs = host_syncs() - s0
     launches_l = lt.launch_counts()
     print(f"path (l) OnlineDictionaryLearner.fit launches: {launches_l}")
-    check(not any(launches_l.values()),
-          f"online fit: its in-loop coder runs no kernel, got {launches_l}")
+    n_calls = cfg4.code_blocks * n_mb
+    check(launches_l["fs_scan"] == n_calls
+          and launches_l["gram"] == 2 * n_calls
+          and sum(launches_l.values()) == 3 * n_calls,
+          f"online fit: one fs_scan and two product launches a coding "
+          f"block expected ({n_calls} blocks), got {launches_l}")
     hist = learner.history_
     keys = {"step", "batch_objective", "avg_nnz", "holdout_objective",
             "seconds", "patches_per_sec"}            # the reference's keys
@@ -2657,6 +2689,10 @@ def main():
     from lyssandra_tpu_torch.ops.cuda_fs import (
         fs_cold_fused, fs_cold_fused_reference,
     )
+    from lyssandra_tpu_torch.ops.cuda_fs_scan import (
+        fs_scan_fused, fs_scan_fused_reference,
+        lane_smem_bytes as scan_smem_bytes,
+    )
     from lyssandra_tpu_torch.ops.cuda_gram import gram, gram_reference
     from lyssandra_tpu_torch.ops.cuda_group import (
         _atom_ids, group_omp_fused, group_omp_fused_reference,
@@ -2674,7 +2710,7 @@ def main():
     )
     from lyssandra_tpu_torch.solvers.greedy import _omp_impl
     from lyssandra_tpu_torch.solvers.lasso import (
-        _fs_cold_supported, host_syncs,
+        _fs_cold_supported, _fs_scan_supported, host_syncs,
     )
     from lyssandra_tpu_torch.ops.dictionaries import dct_dictionary_color
     from lyssandra_tpu_torch.utils.datasets import (
@@ -3220,6 +3256,91 @@ def main():
                         k6_flops, PEAK_F32)
     print(f"K6 N=2048: {k6_steps / n6:.3f} steps per lane on average; "
           f"bound {k6_bound[0]:.4f} ms ({k6_bound[1]})")
+
+    # --- 5d2. the feature-sign search kernel against its plain version
+    def scan_case(D, X, what, lam=LAM, **kw):
+        got = fs_scan_fused(D, X, lam=lam, **kw)
+        want = fs_scan_fused_reference(D, X, lam=lam, **kw)
+        fo = lasso_objectives(torch, D, X, got[0], lam)
+        fw = lasso_objectives(torch, D, X, want[0], lam)
+        gap = (fo - fw) / fw.clamp_min(1e-12)
+        # the lanes done at an optimum (an overflowed lane is done too)
+        breach = lasso_kkt_lanes(torch, D, X, got[0], lam)[got[1] & ~got[2]]
+        kkt_med = float(breach.median()) if breach.numel() else 0.0
+        done_eq = float((got[1] == want[1]).float().mean())
+        ovf_eq = float((got[2] == want[2]).float().mean())
+        print(f"{what}: objective gap median {float(gap.median()):.3g}, max "
+              f"{float(gap.max()):.3g}, min {float(gap.min()):.3g}; KKT "
+              f"breach median {kkt_med:.3g} on the optimal lanes; done "
+              f"{float(got[1].float().mean()):.4f} (plain "
+              f"{float(want[1].float().mean()):.4f}), equal on {done_eq:.4f}"
+              f", overflow equal on {ovf_eq:.4f}")
+        check(float(gap.median()) <= 1e-8 and float(gap.max()) <= 2e-3,
+              f"{what}: objective gap {float(gap.median())}, "
+              f"{float(gap.max())}")
+        check(kkt_med <= 5e-5, f"{what}: KKT breach median {kkt_med}")
+        check(done_eq >= 0.99 and ovf_eq >= 0.99,
+              f"{what}: done equal on {done_eq}, overflow on {ovf_eq}")
+        return got, float(gap.max())
+
+    scan_err = max(scan_case(Dc4, Xc4[:, :n].contiguous(),
+                             f"fs_scan config 4 N={n}")[1]
+                   for n in (1024, 4096))
+    scan_case(Dw, Xw, "fs_scan well-posed p=192 K=1024 N=2048")
+    # ragged widths: K below one pass of the gradient and not a multiple of
+    # 32 (5d's envelope problems)
+    scan_case(dt(Du.astype(np.float32)), dt(Xu.astype(np.float32)),
+              "fs_scan envelope p=21 K=100", lam=0.1)
+    scan_case(dt(Dp.astype(np.float32)), dt(Xp.astype(np.float32)),
+              "fs_scan envelope coherent pair p=24 K=96")
+    got, _ = scan_case(Dc4, Xc4[:, :1024], "fs_scan lam=1e3", lam=1e3)
+    check(bool(got[1].all()) and not bool(got[0].any()),
+          "fs_scan lam=1e3: every lane done on entry with zero codes")
+    got, _ = scan_case(Dc4, Xc4[:, :1024], "fs_scan max_iter=3", max_iter=3)
+    check(int((got[0] != 0).sum(dim=0).max()) <= 3,
+          "fs_scan max_iter=3: more than one atom an iteration")
+    got, _ = scan_case(Dc4, Xc4[:, :1024], "fs_scan max_active=4",
+                       max_active=4)
+    check(bool(got[2].any()) and int((got[0] != 0).sum(dim=0).max()) <= 4,
+          "fs_scan max_active=4: no lane overflowed, or one holds > 4")
+    try:
+        fs_scan_fused(Dc4, Xc4[:, :1024], lam=LAM, max_active=65)
+        check(False, "fs_scan max_active=65 did not raise")
+    except ValueError as e:
+        print(f"fs_scan max_active=65 raises: {e}")
+    for k_ in (100, K4, 51867):
+        check(lib.lyssa_fs_scan_smem_bytes(k_) == scan_smem_bytes(k_),
+              f"fs_scan shared memory at K={k_}: the kernel's "
+              f"{lib.lyssa_fs_scan_smem_bytes(k_)}, the wrapper's "
+              f"{scan_smem_bytes(k_)}")
+    gate = dict(max_active=64, n_activate=1, warm_start=0, cold_unroll=0)
+    check(_fs_scan_supported(Dc4, Xc4, **gate)
+          and not _fs_scan_supported(Dc4, Xc4, **dict(gate, n_activate=2))
+          and not _fs_scan_supported(Dc4, Xc4, **dict(gate, warm_start=4))
+          and not _fs_scan_supported(Dc4, Xc4, **dict(gate, cold_unroll=28)),
+          "fs_scan gate")
+    # its bound: the least work of the solution in the Gram form, alpha0 and
+    # the Gram columns of the atoms used, and per lane the gradient and KKT
+    # test at its support and one Cholesky solve of its system
+    scan_t = {}
+    for n in (1024, 4096):
+        Xn = Xc4[:, :n].contiguous()
+        Gp = fs_scan_fused_reference(Dc4, Xn, lam=LAM)[0]
+        c = (Gp != 0).sum(dim=0).double()
+        atoms = int((Gp != 0).any(dim=1).sum())
+        flops = (2 * P4 * K4 * (n + atoms)
+                 + float((2 * K4 * c + 2 * K4 + c ** 3 / 3 + 2 * c * c).sum()))
+        bound = bound_ms(4 * (P4 * n + P4 * K4 + K4 * n), flops, PEAK_F32)
+        scan_t[n] = {
+            "ms": cuda_ms(torch, lambda: fs_scan_fused(Dc4, Xn, lam=LAM)),
+            "graph_ms": graph_ms(torch,
+                                 lambda: fs_scan_fused(Dc4, Xn, lam=LAM)),
+            "plain_ms": cuda_ms(torch, lambda: fs_scan_fused_reference(
+                Dc4, Xn, lam=LAM), reps=3),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "mean_nnz": float(c.mean())}
+        print(f"fs_scan p={P4} K={K4} N={n}: {json.dumps(scan_t[n])}")
+    del got, Gp, Xn
 
     # --- 5e. K7 against its plain version, then its envelope
     r7 = Xb.T.contiguous()               # the 262,144 Gaussian lanes (N, p)
@@ -3774,6 +3895,21 @@ def main():
          "max_abs_err": k6_err,
          "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
          "bound_by": k6_bound[1], "library_ms": None},
+        # times at a coding block of the online fit (N=1024), by_lanes
+        # also at N=4096; max_abs_err is the widest relative objective gap
+        # over the plain version's codes (config 4, N=1024 and 4096)
+        {"name": "fs_scan", "route": "cuda",
+         "source": "lyssandra_tpu_torch/csrc/fs_scan.cu",
+         "replaces": "none: lyssandra_tpu/solvers/lasso.py's "
+                     "feature_sign_scan lax.while_loop",
+         "launches": launches_l["fs_scan"] + launches_r["fs_scan"]
+         + launches_s["fs_scan"],
+         "max_abs_err": scan_err, "ms": scan_t[1024]["ms"],
+         "plain_ms": scan_t[1024]["plain_ms"],
+         "graph_ms": scan_t[1024]["graph_ms"],
+         "bound_ms": scan_t[1024]["bound_ms"],
+         "bound_by": scan_t[1024]["bound_by"], "library_ms": None,
+         "by_lanes": scan_t},
         {"name": "select_abs_argmax", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/select.cu",
          "replaces": "lyssandra_tpu/ops/pallas_select.py:35",

@@ -58,6 +58,10 @@ _SIGNATURES = {
     # theta, gact, gr, done, stream
     "lyssa_fs_cold": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P, _P,
                       _P, _P, _P],
+    # A0, G, K, N, A, max_iter, max_inner, max_cg, lam, thr, thr_done,
+    # gamma, done, overflow, stream
+    "lyssa_fs_scan": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P,
+                      _P],
     # r, D, p, K, N, bf16, Dh, k_out, stream
     "lyssa_select_abs_argmax": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # r, rows, count, D, p, K, N, splits, tiles, k_out, best_out, stream
@@ -162,6 +166,8 @@ def load() -> ctypes.CDLL:
     lib.lyssa_omp_fused_smem_bytes.restype = ctypes.c_size_t
     lib.lyssa_omp_residual_step_smem_bytes.argtypes = [_I]
     lib.lyssa_omp_residual_step_smem_bytes.restype = ctypes.c_size_t
+    lib.lyssa_fs_scan_smem_bytes.argtypes = [_I]
+    lib.lyssa_fs_scan_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 

@@ -17,9 +17,10 @@ the atoms, in order:
 
 ``fit`` streams minibatches in chunks of ``chunk_batches``; a chunk is one
 metrics record and one checkpoint.  Its in-loop coder is
-``feature_sign_scan`` (the plain loop: no kernel), ``partial_fit`` and
-``online_dl_step`` code through ``feature_sign``, which on a GPU starts from
-the fused cold-start kernel (``ops/cuda_fs.py``).  The atom sweep and the
+``feature_sign_scan``, which on a GPU runs its loop as one kernel a coding
+block (``ops/cuda_fs_scan.py``); ``partial_fit`` and ``online_dl_step``
+code through ``feature_sign``, which on a GPU starts from the fused
+cold-start kernel (``ops/cuda_fs.py``).  The atom sweep and the
 statistics never read a value on the host.
 
 With a ``mesh`` (``parallel.Mesh``), ``fit`` splits each minibatch's lanes

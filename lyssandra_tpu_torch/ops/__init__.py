@@ -1,4 +1,5 @@
 from lyssandra_tpu_torch.ops.cuda_fs import fs_cold_fused
+from lyssandra_tpu_torch.ops.cuda_fs_scan import fs_scan_fused
 from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.ops.cuda_group import group_omp_fused
 from lyssandra_tpu_torch.ops.cuda_omp import omp_fused, omp_residual_fused
@@ -38,6 +39,7 @@ def launch_counts() -> dict[str, int]:
         "fused_patches": fused_patch_pipeline_p1.launches,
         "group_omp_fused": group_omp_fused.launches,
         "fs_cold": fs_cold_fused.launches,
+        "fs_scan": fs_scan_fused.launches,
         "select_abs_argmax": select_abs_argmax.launches,
         "gram": gram.launches,
     }
@@ -53,5 +55,6 @@ def reset_launch_counts() -> None:
     fused_patch_pipeline_p1.launches = 0
     group_omp_fused.launches = 0
     fs_cold_fused.launches = 0
+    fs_scan_fused.launches = 0
     select_abs_argmax.launches = 0
     gram.launches = 0

@@ -20,6 +20,8 @@ that reads a device value is one host sync (``host_syncs`` counts them).
 The first ``cold_unroll`` activations run as the unrolled growing-width
 cold start (``_fs_unrolled_state``); on a GPU the fused CUDA kernel
 ``ops/cuda_fs.py`` computes the same state (``cold_backend``).
+``feature_sign_scan`` from the empty active set runs its whole loop on a
+GPU as one kernel, ``ops/cuda_fs_scan.py``, with no host read inside.
 """
 
 from __future__ import annotations
@@ -511,6 +513,24 @@ def _fs_cold_supported(D: torch.Tensor, X: torch.Tensor,
     )
 
 
+def _fs_scan_supported(D, X, *, max_active: int, n_activate: int,
+                       warm_start: int, cold_unroll: int) -> bool:
+    """The search kernel (``ops/cuda_fs_scan.py``) takes
+    ``feature_sign_scan``'s call: CUDA float32 tensors, the empty active
+    set as the start (no warm or unrolled seed), one activation an
+    iteration and a shape inside its envelope (decided before launch)."""
+    from lyssandra_tpu_torch.ops.cuda_fs_scan import kernel_supports
+
+    return (
+        X.is_cuda and D.is_cuda
+        and D.dtype == torch.float32 and X.dtype == torch.float32
+        and not (cold_unroll and cold_unroll > 0)
+        and not (warm_start and warm_start > 0)
+        and n_activate == 1
+        and kernel_supports(D.shape[0], D.shape[1], max_active)
+    )
+
+
 def _gather_lanes(state, sel, pad_done):
     """The lanes ``sel`` of a loop state; padding lanes marked done."""
     st = tuple(s[sel] if isinstance(s, torch.Tensor) else s for s in state)
@@ -701,9 +721,12 @@ def feature_sign_scan(
     The seeds: ``cold_unroll > 0`` the plain unrolled cold start
     (``_fs_unrolled_state``, never the kernel); else ``warm_start > 0``
     with ``warm_seed`` "omp" (the plain residual-form OMP at T=warm_start)
-    or "fista" (the FISTA iterate); else the empty active set.  The
-    reference's loop decides on the device; here each exit check is a host
-    sync (``host_syncs``), and one more decides whether to polish."""
+    or "fista" (the FISTA iterate); else the empty active set.  From the
+    empty set on a GPU, the search kernel (``ops/cuda_fs_scan.py``) runs
+    the loop, each lane to its own exit, where it takes the shape
+    (``_fs_scan_supported``); the reference's loop decides on the device
+    too.  Elsewhere each exit check is a host sync (``host_syncs``).  One
+    more decides whether to polish."""
     if max_iter < 1:
         raise ValueError(f"max_iter must be >= 1, got {max_iter}")
     if warm_seed not in ("omp", "fista"):
@@ -712,6 +735,14 @@ def feature_sign_scan(
     D = _as_f32(D, device)
     X = _as_f32(X, device)
     lam = float(lam)
+    if _fs_scan_supported(D, X, max_active=max_active, n_activate=n_activate,
+                          warm_start=warm_start, cold_unroll=cold_unroll):
+        from lyssandra_tpu_torch.ops.cuda_fs_scan import fs_scan_fused
+
+        G, done, overflow, A0 = fs_scan_fused(
+            D, X, lam=lam, max_active=max_active, max_iter=max_iter,
+            max_inner=max_inner, max_cg=max_cg)
+        return _fs_scan_polish(D, X, lam, A0, G, ~done | overflow)
     Dt, Xt = D.T, X.T
     A0 = X.T @ D
     if cold_unroll and cold_unroll > 0:
@@ -732,8 +763,14 @@ def feature_sign_scan(
     _, res, _ = _fs_loop(Dt, Xt, A0, lam, state, max_active=max_active,
                          max_iter=max_iter, max_inner=max_inner,
                          max_cg=max_cg, n_activate=n_activate)
-    bad = ~res.done | res.overflow
-    G = res.Gamma
+    return _fs_scan_polish(D, X, lam, A0, res.Gamma,
+                           ~res.done | res.overflow)
+
+
+def _fs_scan_polish(D, X, lam, A0, G, bad):
+    """``feature_sign_scan``'s ending: where any lane is ``bad`` (not done
+    or overflowed; one host sync to know), FISTA-100 from the codes G,
+    kept lane by lane where its objective is lower.  A0 = X^T D (N, K)."""
     if not _host_bool(bad.any()):
         return G
     Gf = _fista_body(D, X, A0.T, lam, G, n_iter=100)

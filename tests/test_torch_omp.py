@@ -280,9 +280,9 @@ def test_omp_fused_launches_gram_once(monkeypatch, eps_mode):
 def test_kernel_library_named_by_source_hash():
     # built only on first use, never at import: nothing here needs nvcc
     names = sorted(p.name for p in _build.sources())
-    assert names == ["errors.cu", "fs_cold.cu", "fused_patches.cu",
-                     "gram.cu", "group_omp.cu", "omp_fused.cu",
-                     "omp_residual.cu", "select.cu"]
+    assert names == ["errors.cu", "fs_cold.cu", "fs_scan.cu",
+                     "fused_patches.cu", "gram.cu", "group_omp.cu",
+                     "omp_fused.cu", "omp_residual.cu", "select.cu"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()

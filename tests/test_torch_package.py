@@ -227,7 +227,7 @@ def test_launch_counters_stay_zero_on_cpu(rng):
         "omp_fused_t": 0, "omp_fused_eps": 0, "omp_residual_t": 0,
         "omp_residual_eps": 0, "omp_residual_select": 0,
         "omp_residual_update": 0, "fused_patches": 0, "group_omp_fused": 0,
-        "fs_cold": 0, "select_abs_argmax": 0, "gram": 0}
+        "fs_cold": 0, "fs_scan": 0, "select_abs_argmax": 0, "gram": 0}
 
 
 def test_dictionary_from_numpy_checks(rng):

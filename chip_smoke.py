@@ -308,6 +308,9 @@ import time
 
 import numpy as np
 
+from portbench.yardstick import work
+from portbench.yardstick.peaks import bound_ms
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 P, K, T = 64, 1024, 8               # the Batch-OMP benchmark's shape
 GS, T_GROUP = 4, 4                  # the group-OMP shape (256 groups)
@@ -365,8 +368,9 @@ LK_GRID_P, LK_GRID_K, LK_GRID_T = (64, 512), (1024, 12304, 12305, 16384,
                                              65536), (8, 32)
 LK_GRID_N = 256
 SRC_LARGE_N = 24000
-# published H100 SXM peaks (NVIDIA's data sheet), for the bounds
-PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+# published H100 SXM peaks (NVIDIA's data sheet), for the bounds; the
+# memory rate is bound_ms's own
+PEAK_F32, PEAK_BF16 = 67e12, 989e12
 
 
 def check(ok, what):
@@ -498,45 +502,14 @@ def digits_problem(seed=0, n=DIGITS_N, C=10, test=0.3):
             y[te])
 
 
-def bound_ms(nbytes, flops, peak_flops):
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the peak rate for their type.
-    Returns (ms, "bytes" or "operations")."""
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def distinct_atoms(torch, idx, mask):
     """The number of distinct atoms in idx where mask holds."""
     return int(torch.unique(idx[mask]).numel())
 
 
 def gram_omp_flops(torch, p, K, nsel, n_atoms, gs=1):
-    """Operations of (group) OMP in its cheapest form at these shapes, the
-    Gram form of Batch-OMP (alpha = alpha0 - G_I gamma_I), over lanes that
-    selected nsel[n] atoms (gs = 1) or groups of gs atoms: the Gram
-    columns of the n_atoms distinct atoms any lane selected (2pK each);
-    ||x||^2 per lane (2p), and alpha0 = D^T x (2pK) per lane that runs a
-    step; at step s, with n = gs (s - 1) atoms in the support, the
-    correlation update (2Kn), the scores and their argmax (K for single
-    atoms; 2K + K/gs for the group norms), the factor's new block
-    (gs n^2 for its triangular solves, 2 gs^2 n for the Schur complement,
-    gs^3 / 3 for its Cholesky), the two solves for gamma (2 (n + gs)^2)
-    and the error from the normal equations (2 (n + gs))."""
-    counts = torch.bincount(nsel.long().flatten()).tolist()
-    score = K if gs == 1 else 2 * K + K // gs
-    total = 2 * p * K * n_atoms + 2 * p * sum(counts)
-    for m, c in enumerate(counts):
-        if m == 0:
-            continue
-        lane = 2 * p * K
-        for s in range(1, m + 1):
-            n = gs * (s - 1)
-            lane += (2 * K * n + score + gs * n * n + 2 * gs * gs * n
-                     + gs ** 3 / 3 + 2 * (n + gs) ** 2 + 2 * (n + gs))
-        total += c * lane
-    return total
+    """portbench's ``gram_omp_flops`` of nsel, a tensor on any device."""
+    return work.gram_omp_flops(p, K, nsel.cpu().numpy(), n_atoms, gs)
 
 
 def sparse_problem(rng, p, K, N, s):
@@ -597,18 +570,13 @@ def graph_ms(torch, fn, n=20, reps=REPS):
 
 
 def count_syncs(torch, fn):
-    """(fn(), the synchronizing CUDA calls it made): torch's sync debug
-    mode warns on each, and the warnings are counted."""
-    import warnings
+    """(fn(), the synchronizing CUDA calls it made), by portbench's
+    ``count_syncs``."""
+    from portbench.entries.denoise import count_syncs as syncs_of
 
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            out = fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    out = []
+    n = syncs_of(lambda: out.append(fn()), torch.device("cuda"))
+    return out[0], n
 
 
 def hold_lanes(torch, got, want, X):
@@ -2709,8 +2677,9 @@ def main():
         smem_bytes as select_smem_bytes,
     )
     from lyssandra_tpu_torch.solvers.greedy import _omp_impl
+    from lyssandra_tpu_torch.ops import cuda_fs
     from lyssandra_tpu_torch.solvers.lasso import (
-        _fs_cold_supported, _fs_scan_supported, host_syncs,
+        _fs_scan_supported, host_syncs,
     )
     from lyssandra_tpu_torch.ops.dictionaries import dct_dictionary_color
     from lyssandra_tpu_torch.utils.datasets import (
@@ -3209,7 +3178,7 @@ def main():
     # 24x24 patches: p sets only the products' work, not the lane's state
     D576, X576 = sparse_problem(rng, 576, K4, 1024, 4)
     D576, X576 = dt(D576), dt(X576)
-    check(_fs_cold_supported(D576, X576, TUN), "K6 gate refuses p=576")
+    check(cuda_fs.takes(D576, X576, TUN), "K6 gate refuses p=576")
     fs_case(D576, X576, LAM, TUN, "envelope p=576 K=1024 Tun=28")
     del D576, X576
     got, _ = fs_case(Dc4, Xb4, 1e3, TUN, "envelope lam=1e3", agree_min=1.0)

@@ -1,3 +1,4 @@
+from lyssandra_tpu_torch.ops._launch import launch_counts, reset_launch_counts
 from lyssandra_tpu_torch.ops.cuda_fs import fs_cold_fused
 from lyssandra_tpu_torch.ops.cuda_fs_scan import fs_scan_fused
 from lyssandra_tpu_torch.ops.cuda_gram import gram
@@ -26,35 +27,3 @@ from lyssandra_tpu_torch.ops.patches import (
     weighted_reconstruct,
 )
 
-
-def launch_counts() -> dict[str, int]:
-    """Kernel launches so far in this process, by kernel."""
-    return {
-        "omp_fused_t": omp_fused.launches_t,
-        "omp_fused_eps": omp_fused.launches_eps,
-        "omp_residual_t": omp_residual_fused.launches_t,
-        "omp_residual_eps": omp_residual_fused.launches_eps,
-        "omp_residual_select": omp_residual_fused.launches_select,
-        "omp_residual_update": omp_residual_fused.launches_update,
-        "fused_patches": fused_patch_pipeline_p1.launches,
-        "group_omp_fused": group_omp_fused.launches,
-        "fs_cold": fs_cold_fused.launches,
-        "fs_scan": fs_scan_fused.launches,
-        "select_abs_argmax": select_abs_argmax.launches,
-        "gram": gram.launches,
-    }
-
-
-def reset_launch_counts() -> None:
-    omp_fused.launches_t = 0
-    omp_fused.launches_eps = 0
-    omp_residual_fused.launches_t = 0
-    omp_residual_fused.launches_eps = 0
-    omp_residual_fused.launches_select = 0
-    omp_residual_fused.launches_update = 0
-    fused_patch_pipeline_p1.launches = 0
-    group_omp_fused.launches = 0
-    fs_cold_fused.launches = 0
-    fs_scan_fused.launches = 0
-    select_abs_argmax.launches = 0
-    gram.launches = 0

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from lyssandra_tpu_torch import _build
+from lyssandra_tpu_torch.ops import _launch
 from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.solvers.lasso import _fs_unrolled_state
 
@@ -49,6 +50,22 @@ def kernel_supports(p: int, K: int, t_unroll: int) -> bool:
             and lane_smem_bytes(K, t_unroll) <= _build.SMEM_PER_BLOCK)
 
 
+def takes(D, X, t_unroll: int, n_refine: int = 2) -> bool:
+    """Whether ``fs_cold_fused`` launches its kernel for (D, X): a float32
+    pair on the GPU whose (p, K, t_unroll) the kernel supports, and
+    n_refine >= 0."""
+    return (_launch.kernel_pair(D, X) and n_refine >= 0
+            and kernel_supports(D.shape[0], D.shape[1], t_unroll))
+
+
+def kkt_thresholds(lam: float) -> tuple[float, float]:
+    """The feature-sign kernels' KKT thresholds for lam: the activation
+    threshold and the done threshold, rounded to float32 once in the
+    kernel, as the plain version's comparisons with a Python float round
+    them."""
+    return lam * (1.0 + 1e-4) + 1e-7, lam + 1e-12
+
+
 def fs_cold_fused(D: torch.Tensor, X: torch.Tensor, *, lam, t_unroll: int,
                   n_refine: int = 2):
     """Fused feature-sign cold start over the columns of X (p, N) with
@@ -60,23 +77,13 @@ def fs_cold_fused(D: torch.Tensor, X: torch.Tensor, *, lam, t_unroll: int,
     if X.device.type == "cpu" and D.device.type == "cpu":
         return fs_cold_fused_reference(D, X, lam=lam, t_unroll=t_unroll,
                                        n_refine=n_refine)
-    if not (X.is_cuda and D.is_cuda and X.device == D.device):
-        raise ValueError(
-            f"no kernel for D on {D.device} and X on {X.device}")
-    if X.dtype != torch.float32 or D.dtype != torch.float32:
-        raise ValueError(f"kernel takes float32, got {D.dtype}, {X.dtype}")
-    if X.ndim != 2 or D.ndim != 2 or X.shape[0] != D.shape[0]:
-        raise ValueError(
-            f"D (p, K) and X (p, N) expected, got {tuple(D.shape)} and "
-            f"{tuple(X.shape)}")
-    p, K = D.shape
-    N = X.shape[1]
     tun = int(t_unroll)
-    if not kernel_supports(p, K, tun) or n_refine < 0:
-        raise ValueError(
-            f"kernel takes 1 <= t_unroll <= {MAX_TUN}, n_refine >= 0 and a "
-            f"lane state that fits shared memory; got p={p}, K={K}, "
-            f"t_unroll={tun}, n_refine={n_refine}")
+    _launch.check_pair(
+        D, X, takes,
+        f"1 <= t_unroll <= {MAX_TUN}, n_refine >= 0 and a lane state that "
+        "fits shared memory", t_unroll=tun, n_refine=n_refine)
+    K = D.shape[1]
+    N = X.shape[1]
     dev = X.device
     idx = torch.zeros((N, tun), dtype=torch.int32, device=dev)
     mask = torch.zeros((N, tun), dtype=torch.bool, device=dev)
@@ -90,20 +97,9 @@ def fs_cold_fused(D: torch.Tensor, X: torch.Tensor, *, lam, t_unroll: int,
     G = gram(D, D, symmetric=True)      # (K, K)
     lam = float(lam)
     warps = min(_MAX_WARPS, _build.SMEM_PER_BLOCK // lane_smem_bytes(K, tun))
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        # the thresholds rounded to float32 once, as the plain version's
-        # comparisons with a Python float round them
-        code = lib.lyssa_fs_cold(
-            A0.data_ptr(), G.data_ptr(), K, N, tun, int(n_refine), lam,
-            lam * (1.0 + 1e-4) + 1e-7, lam + 1e-12, warps, idx.data_ptr(),
-            mask.data_ptr(), theta.data_ptr(), gact.data_ptr(),
-            gr.data_ptr(), done.data_ptr(), stream)
-    _build.check(lib, code, "fs_cold kernel")
-    fs_cold_fused.launches += 1
+    _launch.launch(
+        "fs_cold", "lyssa_fs_cold", A0.data_ptr(), G.data_ptr(), K, N, tun,
+        int(n_refine), lam, *kkt_thresholds(lam), warps, idx.data_ptr(),
+        mask.data_ptr(), theta.data_ptr(), gact.data_ptr(), gr.data_ptr(),
+        done.data_ptr(), like=X)
     return idx, mask, theta, gact, gr, done
-
-
-# kernel launches (K6)
-fs_cold_fused.launches = 0

@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 
 from lyssandra_tpu_torch import _build
+from lyssandra_tpu_torch.ops import _launch
+from lyssandra_tpu_torch.ops.cuda_fs import kkt_thresholds
 from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.solvers.lasso import _fs_init, _fs_loop
 
@@ -53,6 +55,16 @@ def kernel_supports(p: int, K: int, max_active: int) -> bool:
             and lane_smem_bytes(K) <= _build.SMEM_PER_BLOCK)
 
 
+def takes(D, X, max_active: int = 64, max_iter: int = 60,
+          max_inner: int = 6, max_cg: int = 32) -> bool:
+    """Whether ``fs_scan_fused`` launches its kernel for (D, X): a float32
+    pair on the GPU whose (p, K, max_active) the kernel supports, and
+    counts >= 0."""
+    return (_launch.kernel_pair(D, X)
+            and min(max_iter, max_inner, max_cg) >= 0
+            and kernel_supports(D.shape[0], D.shape[1], max_active))
+
+
 def fs_scan_fused(D: torch.Tensor, X: torch.Tensor, *, lam,
                   max_active: int = 64, max_iter: int = 60,
                   max_inner: int = 6, max_cg: int = 32):
@@ -66,24 +78,13 @@ def fs_scan_fused(D: torch.Tensor, X: torch.Tensor, *, lam,
         return fs_scan_fused_reference(
             D, X, lam=lam, max_active=max_active, max_iter=max_iter,
             max_inner=max_inner, max_cg=max_cg)
-    if not (X.is_cuda and D.is_cuda and X.device == D.device):
-        raise ValueError(
-            f"no kernel for D on {D.device} and X on {X.device}")
-    if X.dtype != torch.float32 or D.dtype != torch.float32:
-        raise ValueError(f"kernel takes float32, got {D.dtype}, {X.dtype}")
-    if X.ndim != 2 or D.ndim != 2 or X.shape[0] != D.shape[0]:
-        raise ValueError(
-            f"D (p, K) and X (p, N) expected, got {tuple(D.shape)} and "
-            f"{tuple(X.shape)}")
-    p, K = D.shape
+    _launch.check_pair(
+        D, X, takes,
+        f"1 <= max_active <= {MAX_ACTIVE}, a lane state that fits shared "
+        "memory and counts >= 0", max_active=max_active, max_iter=max_iter,
+        max_inner=max_inner, max_cg=max_cg)
+    K = D.shape[1]
     N = X.shape[1]
-    if (not kernel_supports(p, K, max_active)
-            or min(max_iter, max_inner, max_cg) < 0):
-        raise ValueError(
-            f"kernel takes 1 <= max_active <= {MAX_ACTIVE}, a lane state "
-            f"that fits shared memory and counts >= 0; got p={p}, K={K}, "
-            f"max_active={max_active}, max_iter={max_iter}, "
-            f"max_inner={max_inner}, max_cg={max_cg}")
     dev = X.device
     gamma = torch.zeros((N, K), dtype=torch.float32, device=dev)
     done = torch.zeros((N,), dtype=torch.bool, device=dev)
@@ -93,20 +94,9 @@ def fs_scan_fused(D: torch.Tensor, X: torch.Tensor, *, lam,
     A0 = gram(X, D)                     # (N, K) alpha0 = X^T D
     G = gram(D, D, symmetric=True)      # (K, K)
     lam = float(lam)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        # the thresholds rounded to float32 once, as the plain version's
-        # comparisons with a Python float round them
-        code = lib.lyssa_fs_scan(
-            A0.data_ptr(), G.data_ptr(), K, N, int(max_active),
-            int(max_iter), int(max_inner), int(max_cg), lam,
-            lam * (1.0 + 1e-4) + 1e-7, lam + 1e-12, gamma.data_ptr(),
-            done.data_ptr(), overflow.data_ptr(), stream)
-    _build.check(lib, code, "fs_scan kernel")
-    fs_scan_fused.launches += 1
+    _launch.launch(
+        "fs_scan", "lyssa_fs_scan", A0.data_ptr(), G.data_ptr(), K, N,
+        int(max_active), int(max_iter), int(max_inner), int(max_cg), lam,
+        *kkt_thresholds(lam), gamma.data_ptr(), done.data_ptr(),
+        overflow.data_ptr(), like=X)
     return gamma.T, done, overflow, A0
-
-
-# kernel launches
-fs_scan_fused.launches = 0

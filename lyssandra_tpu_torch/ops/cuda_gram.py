@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from lyssandra_tpu_torch import _build
+from lyssandra_tpu_torch.ops import _launch
 
 
 def gram_reference(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -52,15 +52,6 @@ def gram(A: torch.Tensor, B: torch.Tensor, *,
         return C
     A = A.contiguous()
     B = A if symmetric else B.contiguous()
-    lib = _build.load()
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lyssa_gram(A.data_ptr(), B.data_ptr(), p, M, K,
-                              int(symmetric), C.data_ptr(), stream)
-    _build.check(lib, code, "gram kernel")
-    gram.launches += 1
+    _launch.launch("gram", "lyssa_gram", A.data_ptr(), B.data_ptr(), p, M,
+                   K, int(symmetric), C.data_ptr(), like=A)
     return C
-
-
-# kernel launches
-gram.launches = 0

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from lyssandra_tpu_torch import _build
+from lyssandra_tpu_torch.ops import _launch
 from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.solvers.greedy import (
     _argmax_first,
@@ -188,29 +189,26 @@ def kernel_supports(p: int, gs: int, T: int) -> bool:
             and lane_smem_bytes(p, gs, T) <= _build.SMEM_PER_BLOCK)
 
 
+def takes(D, X, gs: int, T: int) -> bool:
+    """Whether ``group_omp_fused`` launches its kernel for (D, X) with groups
+    of at most gs atoms at T steps (T <= n_groups, as ``group_omp`` clamps
+    it): a float32 pair on the GPU whose (p, gs, T) the kernel supports."""
+    return _launch.kernel_pair(D, X) and kernel_supports(D.shape[0], gs, T)
+
+
 def group_omp_fused(D: torch.Tensor, X: torch.Tensor, groups, T: int):
     """Fused group OMP over the columns of X (p, N) with dictionary D
     (p, K) and group ids ``groups`` (K,).  Returns (idx, gamma, err, nsel,
     gidx)."""
     if X.device.type == "cpu" and D.device.type == "cpu":
         return group_omp_fused_reference(D, X, groups, T)
-    if not (X.is_cuda and D.is_cuda and X.device == D.device):
-        raise ValueError(
-            f"no kernel for D on {D.device} and X on {X.device}")
-    if X.dtype != torch.float32 or D.dtype != torch.float32:
-        raise ValueError(f"kernel takes float32, got {D.dtype}, {X.dtype}")
-    if X.ndim != 2 or D.ndim != 2 or X.shape[0] != D.shape[0]:
-        raise ValueError(
-            f"D (p, K) and X (p, N) expected, got {tuple(D.shape)} and "
-            f"{tuple(X.shape)}")
     members, valid, ng, gs = slot_table(groups)
     _check_T(T, ng)
+    _launch.check_pair(
+        D, X, takes,
+        f"p <= {MAX_P}, gs <= {MAX_GS} and T*gs <= {MAX_SLOTS}", gs=gs, T=T)
     p = D.shape[0]
     N = X.shape[1]
-    if not kernel_supports(p, gs, T):
-        raise ValueError(
-            f"kernel takes p <= {MAX_P}, gs <= {MAX_GS} and T*gs <= "
-            f"{MAX_SLOTS}; got p={p}, gs={gs}, T={T}")
     dev = X.device
     gamma = torch.zeros((N, T * gs), dtype=torch.float32, device=dev)
     gidx = torch.zeros((N, T), dtype=torch.int32, device=dev)
@@ -223,17 +221,9 @@ def group_omp_fused(D: torch.Tensor, X: torch.Tensor, groups, T: int):
     A0 = gram(X, Dp)                    # (N, ng*gs) alpha0 = X^T Dp
     Gp = gram(Dp, Dp, symmetric=True)   # (ng*gs, ng*gs)
     warps = min(_MAX_WARPS, _build.SMEM_PER_BLOCK // lane_smem_bytes(p, gs, T))
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lyssa_group_omp(
-            X.data_ptr(), Dp.data_ptr(), A0.data_ptr(), Gp.data_ptr(), p, ng,
-            gs, N, T, warps, gamma.data_ptr(), gidx.data_ptr(),
-            err.data_ptr(), nsel.data_ptr(), stream)
-    _build.check(lib, code, "group_omp kernel")
-    group_omp_fused.launches += 1
+    _launch.launch(
+        "group_omp_fused", "lyssa_group_omp", X.data_ptr(), Dp.data_ptr(),
+        A0.data_ptr(), Gp.data_ptr(), p, ng, gs, N, T, warps,
+        gamma.data_ptr(), gidx.data_ptr(), err.data_ptr(), nsel.data_ptr(),
+        like=X)
     return _atom_ids(members, gidx), gamma, err, nsel, gidx
-
-
-# kernel launches (K4/K5)
-group_omp_fused.launches = 0

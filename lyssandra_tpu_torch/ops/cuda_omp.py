@@ -28,7 +28,7 @@ import functools
 import torch
 
 from lyssandra_tpu_torch import _build
-from lyssandra_tpu_torch.ops import cuda_select
+from lyssandra_tpu_torch.ops import _launch, cuda_select
 from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.solvers.greedy import _omp_impl
 
@@ -80,25 +80,11 @@ def kernel_supports(p: int, K: int, T: int) -> bool:
     return p >= 1 and K >= 1 and T >= 1 and block_lanes(p, K, T) > 0
 
 
-def _check_cuda_call(D: torch.Tensor, X: torch.Tensor, T: int, supports,
-                     limit: str = "whose block state fits shared memory"
-                     ) -> None:
-    """Raise unless a kernel takes (D, X) at T steps: both float32 on one
-    GPU, D (p, K) and X (p, N), and ``supports(p, K, T)`` (else the error
-    names the ``limit``)."""
-    if not (X.is_cuda and D.is_cuda and X.device == D.device):
-        raise ValueError(
-            f"no kernel for D on {D.device} and X on {X.device}")
-    if X.dtype != torch.float32 or D.dtype != torch.float32:
-        raise ValueError(f"kernel takes float32, got {D.dtype}, {X.dtype}")
-    if X.ndim != 2 or D.ndim != 2 or X.shape[0] != D.shape[0]:
-        raise ValueError(
-            f"D (p, K) and X (p, N) expected, got {tuple(D.shape)} and "
-            f"{tuple(X.shape)}")
-    p, K = D.shape
-    if not supports(p, K, T):
-        raise ValueError(
-            f"kernel takes a (p, K, T) {limit}; got p={p}, K={K}, T={T}")
+def takes(D, X, T: int) -> bool:
+    """Whether ``omp_fused`` launches its kernel for (D, X) at T steps: a
+    float32 pair on the GPU whose (p, K, T) the kernel supports."""
+    return (_launch.kernel_pair(D, X)
+            and kernel_supports(D.shape[0], D.shape[1], T))
 
 
 def _outputs(N: int, T: int, dev):
@@ -115,7 +101,9 @@ def omp_fused(D: torch.Tensor, X: torch.Tensor, *, T: int, eps: float = 0.0,
     Returns (idx, gamma, err, nsel)."""
     if X.device.type == "cpu" and D.device.type == "cpu":
         return omp_fused_reference(D, X, T=T, eps=eps, eps_mode=eps_mode)
-    _check_cuda_call(D, X, T, kernel_supports)
+    _launch.check_pair(D, X, takes,
+                       "a (p, K, T) whose block state fits shared memory",
+                       T=T)
     p, K = D.shape
     N = X.shape[1]
     idx, gamma, err, nsel = _outputs(N, T, X.device)
@@ -125,25 +113,13 @@ def omp_fused(D: torch.Tensor, X: torch.Tensor, *, T: int, eps: float = 0.0,
     X = X.contiguous()
     G = gram(D, D, symmetric=True)           # (K, K), one launch
     Dt = D.T.contiguous()                    # (K, p): an atom is a row
-    lib = _build.load()
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lyssa_omp_fused(
-            X.data_ptr(), D.data_ptr(), Dt.data_ptr(), G.data_ptr(), p, K, N,
-            T, float(eps * eps), int(eps_mode), block_lanes(p, K, T),
-            idx.data_ptr(), gamma.data_ptr(), err.data_ptr(),
-            nsel.data_ptr(), stream)
-    _build.check(lib, code, "omp_fused kernel")
-    if eps_mode:
-        omp_fused.launches_eps += 1
-    else:
-        omp_fused.launches_t += 1
+    _launch.launch(
+        "omp_fused_eps" if eps_mode else "omp_fused_t", "lyssa_omp_fused",
+        X.data_ptr(), D.data_ptr(), Dt.data_ptr(), G.data_ptr(), p, K, N, T,
+        float(eps * eps), int(eps_mode), block_lanes(p, K, T),
+        idx.data_ptr(), gamma.data_ptr(), err.data_ptr(), nsel.data_ptr(),
+        like=X)
     return idx, gamma, err, nsel
-
-
-# kernel launches, one count per mode: fixed T (K1) and error-stopped (K2)
-omp_fused.launches_t = 0
-omp_fused.launches_eps = 0
 
 
 # --- the residual form, for K above the Gram form's cap
@@ -199,6 +175,14 @@ def residual_kernel_supports(p: int, K: int, T: int) -> bool:
             and residual_step_smem_bytes(T) <= _build.SMEM_PER_BLOCK)
 
 
+def takes_residual(D, X, T: int) -> bool:
+    """Whether ``omp_residual_fused`` launches its kernels for (D, X) at T
+    steps: a float32 pair on the GPU whose (p, K, T) the residual form
+    supports."""
+    return (_launch.kernel_pair(D, X)
+            and residual_kernel_supports(D.shape[0], D.shape[1], T))
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -223,8 +207,10 @@ def omp_residual_fused(D: torch.Tensor, X: torch.Tensor, *, T: int,
     call reads nothing back to the host."""
     if X.device.type == "cpu" and D.device.type == "cpu":
         return omp_fused_reference(D, X, T=T, eps=eps, eps_mode=eps_mode)
-    _check_cuda_call(D, X, T, residual_kernel_supports,
-                     "with p <= 512 whose lane state fits a chunk of lanes")
+    _launch.check_pair(
+        D, X, takes_residual,
+        "a (p, K, T) with p <= 512 whose lane state fits a chunk of lanes",
+        T=T)
     p, K = D.shape
     N = X.shape[1]
     idx, gamma, err, nsel = _outputs(N, T, X.device)
@@ -248,44 +234,27 @@ def omp_residual_fused(D: torch.Tensor, X: torch.Tensor, *, T: int,
     starts = range(0, N, cap)
     counts = torch.zeros((len(starts), T + 1), **i32)
     eps2, mode = float(eps * eps), int(eps_mode)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for n0, cnt in zip(starts, counts):
-            _build.check(lib, lib.lyssa_omp_residual_init(
-                X.data_ptr(), p, N, n0, min(cap, N - n0), eps2, mode,
-                xt.data_ptr(), r.data_ptr(), _ptr(err, n0), _ptr(nsel, n0),
-                lists[0].data_ptr(), cnt.data_ptr(), stream),
-                "omp_residual init kernel")
-            if eps_mode:
-                omp_residual_fused.launches_eps += 1
-            else:
-                omp_residual_fused.launches_t += 1
-            for t in range(T):
-                rows, nxt = lists[t % 2], lists[(t + 1) % 2]
-                _build.check(lib, lib.lyssa_select_rows(
-                    r.data_ptr(), rows.data_ptr(), _ptr(cnt, t),
-                    D.data_ptr(), p, K, cap, splits, tiles, ksel.data_ptr(),
-                    bsel.data_ptr(), stream), "omp_residual selection kernel")
-                omp_residual_fused.launches_select += 1
-                last = t + 1 == T
-                _build.check(lib, lib.lyssa_omp_residual_step(
-                    Dt.data_ptr(), xt.data_ptr(), r.data_ptr(), L.data_ptr(),
-                    a0.data_ptr(), ksel.data_ptr(), bsel.data_ptr(), splits,
-                    rows.data_ptr(), _ptr(cnt, t),
-                    None if last else nxt.data_ptr(),
-                    None if last else _ptr(cnt, t + 1), p, cap, T, t, eps2,
-                    mode, _ptr(idx, n0 * T), _ptr(gamma, n0 * T),
-                    _ptr(err, n0), _ptr(nsel, n0), stream),
-                    "omp_residual step kernel")
-                omp_residual_fused.launches_update += 1
+    for n0, cnt in zip(starts, counts):
+        _launch.launch(
+            "omp_residual_eps" if eps_mode else "omp_residual_t",
+            "lyssa_omp_residual_init", X.data_ptr(), p, N, n0,
+            min(cap, N - n0), eps2, mode, xt.data_ptr(), r.data_ptr(),
+            _ptr(err, n0), _ptr(nsel, n0), lists[0].data_ptr(),
+            cnt.data_ptr(), like=X)
+        for t in range(T):
+            rows, nxt = lists[t % 2], lists[(t + 1) % 2]
+            _launch.launch(
+                "omp_residual_select", "lyssa_select_rows", r.data_ptr(),
+                rows.data_ptr(), _ptr(cnt, t), D.data_ptr(), p, K, cap,
+                splits, tiles, ksel.data_ptr(), bsel.data_ptr(), like=X)
+            last = t + 1 == T
+            _launch.launch(
+                "omp_residual_update", "lyssa_omp_residual_step",
+                Dt.data_ptr(), xt.data_ptr(), r.data_ptr(), L.data_ptr(),
+                a0.data_ptr(), ksel.data_ptr(), bsel.data_ptr(), splits,
+                rows.data_ptr(), _ptr(cnt, t),
+                None if last else nxt.data_ptr(),
+                None if last else _ptr(cnt, t + 1), p, cap, T, t, eps2, mode,
+                _ptr(idx, n0 * T), _ptr(gamma, n0 * T), _ptr(err, n0),
+                _ptr(nsel, n0), like=X)
     return idx, gamma, err, nsel
-
-
-# kernel launches: the init kernel's, one a chunk, by mode (fixed T, K1-L;
-# error-stopped, K2-L), and the selection's and the step kernel's, T a
-# chunk each, in both modes
-omp_residual_fused.launches_t = 0
-omp_residual_fused.launches_eps = 0
-omp_residual_fused.launches_select = 0
-omp_residual_fused.launches_update = 0

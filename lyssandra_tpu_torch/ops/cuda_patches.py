@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from lyssandra_tpu_torch import _build
-from lyssandra_tpu_torch._device import kernel_device
+from lyssandra_tpu_torch.ops import _launch
 from lyssandra_tpu_torch.ops.patches import extract_patches
 
 
@@ -64,7 +64,6 @@ def fused_patch_pipeline_p1(
     img = img.contiguous()
     p2 = p * p
     Np = (H - p + 1) * (W - p + 1)
-    lib = _build.load()
     wm_ptr = off_ptr = None
     if whiten is not None:
         Wm, off = (t.to(device=img.device, dtype=torch.float32).contiguous()
@@ -73,23 +72,19 @@ def fused_patch_pipeline_p1(
             raise ValueError(
                 f"kernel whitening takes Wm ({p2}, {p2}) and offset "
                 f"({p2},), got {tuple(Wm.shape)} and {tuple(off.shape)}")
-        if lib.lyssa_fused_patches_whiten_smem(p) > _build.SMEM_PER_BLOCK:
+        if (_build.load().lyssa_fused_patches_whiten_smem(p)
+                > _build.SMEM_PER_BLOCK):
             raise ValueError(f"whitening at p={p} exceeds shared memory")
         wm_ptr, off_ptr = Wm.data_ptr(), off.data_ptr()
     X = torch.empty((p2, Np), dtype=torch.float32, device=img.device)
     means = torch.empty((Np,), dtype=torch.float32, device=img.device)
     scales = torch.empty((Np,), dtype=torch.float32, device=img.device)
-    with kernel_device(img):
-        code = lib.lyssa_fused_patches(
-            img.data_ptr(), H, W, p, int(do_dc), int(do_norm), float(eps),
-            wm_ptr, off_ptr, X.data_ptr(), means.data_ptr(),
-            scales.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, code, "fused_patches kernel")
-    fused_patch_pipeline_p1.launches += 1
+    _launch.launch(
+        "fused_patches", "lyssa_fused_patches", img.data_ptr(), H, W, p,
+        int(do_dc), int(do_norm), float(eps), wm_ptr, off_ptr, X.data_ptr(),
+        means.data_ptr(), scales.data_ptr(), like=img)
     return X, means, scales
 
-
-fused_patch_pipeline_p1.launches = 0
 
 
 def fused_patch_pipeline(

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from lyssandra_tpu_torch import _build
-from lyssandra_tpu_torch._device import kernel_device
+from lyssandra_tpu_torch.ops import _launch
 from lyssandra_tpu_torch.solvers.greedy import _argmax_abs
 
 MAX_P = 512
@@ -92,26 +92,29 @@ def kernel_supports(p: int, K: int) -> bool:
             <= _build.SMEM_PER_BLOCK)
 
 
+def takes(D, X, *, any_device: bool = False) -> bool:
+    """Whether ``select_abs_argmax`` launches its kernel for the rows of
+    X^T, X (p, N), over D (p, K): a float32 pair on the GPU whose p and K
+    the kernel supports.  ``any_device`` leaves the device out, for a
+    caller that also sends such a pair on the CPU to the wrapper, where its
+    plain version runs."""
+    on_gpu = any_device or (D.is_cuda and X.is_cuda)
+    return (_launch.kernel_types("cuda" if on_gpu else "cpu", D.dtype,
+                                 X.dtype)
+            and kernel_supports(D.shape[0], D.shape[1]))
+
+
 def select_abs_argmax(r: torch.Tensor, D: torch.Tensor, *,
                       bf16: bool = False) -> torch.Tensor:
     """k_n = argmax_k |r_n . d_k| (lowest index on ties) for r (N, p) and
     D (p, K); bf16 rounds both operands to bf16 and sums in float32."""
     if r.device.type == "cpu" and D.device.type == "cpu":
         return select_abs_argmax_reference(r, D, bf16=bf16)
-    if not (r.is_cuda and D.is_cuda and r.device == D.device):
-        raise ValueError(
-            f"no kernel for r on {r.device} and D on {D.device}")
-    if r.dtype != torch.float32 or D.dtype != torch.float32:
-        raise ValueError(f"kernel takes float32, got {r.dtype}, {D.dtype}")
-    if r.ndim != 2 or D.ndim != 2 or r.shape[1] != D.shape[0]:
-        raise ValueError(
-            f"r (N, p) and D (p, K) expected, got {tuple(r.shape)} and "
-            f"{tuple(D.shape)}")
+    # X = r^T, as the predicate reads the pair
+    _launch.check_pair(D, r.T if r.ndim == 2 else r, takes,
+                       f"1 <= p <= {MAX_P} and K >= 1")
     N, p = r.shape
     K = D.shape[1]
-    if not kernel_supports(p, K):
-        raise ValueError(
-            f"kernel takes 1 <= p <= {MAX_P} and K >= 1; got p={p}, K={K}")
     k = torch.empty((N,), dtype=torch.int32, device=r.device)
     if N == 0:
         return k
@@ -120,16 +123,8 @@ def select_abs_argmax(r: torch.Tensor, D: torch.Tensor, *,
     # D^T rounded to bf16, p zero-filled to a multiple of 16
     Dh = (torch.empty((K * _padded(p, 16),), dtype=torch.bfloat16,
                       device=r.device) if bf16 else None)
-    lib = _build.load()
-    with kernel_device(r):
-        code = lib.lyssa_select_abs_argmax(
-            r.data_ptr(), D.data_ptr(), p, K, N, int(bool(bf16)),
-            None if Dh is None else Dh.data_ptr(), k.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, code, "select_abs_argmax kernel")
-    select_abs_argmax.launches += 1
+    _launch.launch(
+        "select_abs_argmax", "lyssa_select_abs_argmax", r.data_ptr(),
+        D.data_ptr(), p, K, N, int(bool(bf16)),
+        None if Dh is None else Dh.data_ptr(), k.data_ptr(), like=r)
     return k
-
-
-# kernel launches (K7)
-select_abs_argmax.launches = 0

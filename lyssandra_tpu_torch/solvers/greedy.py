@@ -173,19 +173,6 @@ def _check_corr_dtype(corr_dtype: str) -> None:
         raise ValueError(f"corr_dtype must be 'f32' or 'bf16': {corr_dtype!r}")
 
 
-def _select_supported(D: torch.Tensor, X: torch.Tensor) -> bool:
-    """The fused selection (ops/cuda_select.py) takes the call: float32
-    tensors and a shape inside the kernel's envelope.  Its wrapper
-    launches the kernel for CUDA tensors and runs the plain selection for
-    CPU ones."""
-    from lyssandra_tpu_torch.ops.cuda_select import kernel_supports
-
-    return (
-        D.dtype == torch.float32 and X.dtype == torch.float32
-        and kernel_supports(D.shape[0], D.shape[1])
-    )
-
-
 def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32",
               fused_select=False, M=None):
     """Explicit-residual OMP (oracle.omp): correlations from
@@ -231,12 +218,14 @@ def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32",
             return (Dt[k.long()] * Mt / nk.clamp_min(1e-6)[:, None],
                     nk <= 1e-6)
     else:
-        if fused_select and _select_supported(D, X):
-            # imported here: ops/cuda_omp.py imports this module
-            from lyssandra_tpu_torch.ops.cuda_select import select_abs_argmax
+        # imported here: ops/cuda_select.py imports this module
+        from lyssandra_tpu_torch.ops import cuda_select
 
+        # CPU tensors go to the wrapper too, whose plain version runs there
+        if fused_select and cuda_select.takes(D, X, any_device=True):
             def select(r):
-                return select_abs_argmax(r, D, bf16=corr_dtype == "bf16")
+                return cuda_select.select_abs_argmax(
+                    r, D, bf16=corr_dtype == "bf16")
         else:
             D_sel = D.bfloat16().float() if corr_dtype == "bf16" else D
 
@@ -289,11 +278,6 @@ def _omp_impl(D, X, eps, *, T, eps_mode, corr_dtype="f32",
     return GreedyResult(idx, torch.where(valid, gamma, 0.0), err, nsel)
 
 
-# the reference's gate: its fused kernel takes p <= 512 at any K
-# (lyssandra_tpu/solvers/greedy.py::_fused_supported)
-_FUSED_MAX_P = 512
-
-
 def omp_route(device_type: str, D_dtype: torch.dtype, X_dtype: torch.dtype,
               corr_dtype: str, p: int, K: int, T: int) -> str:
     """Which fused OMP solve takes a call, from what the call is:
@@ -301,22 +285,24 @@ def omp_route(device_type: str, D_dtype: torch.dtype, X_dtype: torch.dtype,
     'gram'     — ``cuda_omp.omp_fused`` (K1/K2 in the Gram form) wherever
                  its block state fits shared memory;
     'residual' — ``cuda_omp.omp_residual_fused`` (the residual form, no
-                 state that grows with K) elsewhere at p <= 512, the
-                 reference's own gate, where its state fits;
+                 state that grows with K) elsewhere where it takes the
+                 shape: p <= 512, which is also the reference's gate
+                 (``lyssandra_tpu/solvers/greedy.py::_fused_supported``),
+                 and a state that fits;
     'plain'    — no kernel: tensors off the GPU, types other than float32,
                  ``corr_dtype='bf16'`` (neither kernel has a bf16
                  selection, as the reference's has none), or p > 512 with K
                  above the Gram form's cap, where the reference leaves its
                  kernel too.
     """
-    from lyssandra_tpu_torch.ops import cuda_omp
+    from lyssandra_tpu_torch.ops import _launch, cuda_omp
 
-    if (device_type != "cuda" or D_dtype != torch.float32
-            or X_dtype != torch.float32 or corr_dtype != "f32"):
+    if (corr_dtype != "f32"
+            or not _launch.kernel_types(device_type, D_dtype, X_dtype)):
         return "plain"
     if cuda_omp.kernel_supports(p, K, T):
         return "gram"
-    if p <= _FUSED_MAX_P and cuda_omp.residual_kernel_supports(p, K, T):
+    if cuda_omp.residual_kernel_supports(p, K, T):
         return "residual"
     return "plain"
 
@@ -569,19 +555,6 @@ def _group_omp_impl(D, X, members, mmask, member_oh, eps, *, n_groups: int,
     return GreedyResult(idx, gamma * smask, err, nsel * gs)
 
 
-def _group_fused_supported(D, X, gs: int, T: int) -> bool:
-    """The fused group kernel takes the call: CUDA tensors, float32, and a
-    shape inside its envelope (the reference's gate, with "on a TPU"
-    read as "on the GPU")."""
-    from lyssandra_tpu_torch.ops.cuda_group import kernel_supports
-
-    return (
-        X.is_cuda and D.is_cuda
-        and D.dtype == torch.float32 and X.dtype == torch.float32
-        and kernel_supports(D.shape[0], gs, T)
-    )
-
-
 def _scatter_dense(res: GreedyResult, K: int) -> torch.Tensor:
     """Dense Gamma (K, N) as a plain scatter-add of gamma at idx."""
     C = torch.zeros((res.idx.shape[0], K), dtype=res.gamma.dtype,
@@ -615,19 +588,19 @@ def group_omp(D, X, groups, T: int, eps: float | None = None, *,
     device = resolve_device(device, D, X)
     D = _as_f32(D, device)
     X = _as_f32(X, device)
-    from lyssandra_tpu_torch.ops.cuda_group import (
-        group_omp_fused, groups_numpy, slot_table,
-    )
+    from lyssandra_tpu_torch.ops import cuda_group
 
-    members, mmask, n_groups, gs = slot_table(groups)
+    members, mmask, n_groups, gs = cuda_group.slot_table(groups)
     K = D.shape[1]
     T_eff = min(T, n_groups)
-    if fused and eps is None and _group_fused_supported(D, X, gs, T_eff):
-        idx, gamma, err, nsel, _ = group_omp_fused(D, X, groups, T_eff)
+    if fused and eps is None and cuda_group.takes(D, X, gs, T_eff):
+        idx, gamma, err, nsel, _ = cuda_group.group_omp_fused(
+            D, X, groups, T_eff)
         res = GreedyResult(idx, gamma, err, nsel * gs)
     else:
         member_oh = torch.nn.functional.one_hot(
-            torch.as_tensor(groups_numpy(groups), device=D.device),
+            torch.as_tensor(cuda_group.groups_numpy(groups),
+                            device=D.device),
             n_groups).to(D.dtype)
         res = _group_omp_impl(
             D, X, torch.as_tensor(members, device=D.device),

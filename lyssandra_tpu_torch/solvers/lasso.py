@@ -500,34 +500,19 @@ def _fs_unrolled_state_fused(Dt, Xt, A0, lam, *, t_unroll, n_refine,
                         max_active=max_active)
 
 
-def _fs_cold_supported(D: torch.Tensor, X: torch.Tensor,
-                       t_unroll: int) -> bool:
-    """The fused cold-start kernel takes the call: CUDA tensors, float32
-    and a shape inside its envelope (decided before launch)."""
-    from lyssandra_tpu_torch.ops.cuda_fs import kernel_supports
-
-    return (
-        X.is_cuda and D.is_cuda
-        and D.dtype == torch.float32 and X.dtype == torch.float32
-        and kernel_supports(D.shape[0], D.shape[1], t_unroll)
-    )
-
-
 def _fs_scan_supported(D, X, *, max_active: int, n_activate: int,
                        warm_start: int, cold_unroll: int) -> bool:
     """The search kernel (``ops/cuda_fs_scan.py``) takes
-    ``feature_sign_scan``'s call: CUDA float32 tensors, the empty active
-    set as the start (no warm or unrolled seed), one activation an
-    iteration and a shape inside its envelope (decided before launch)."""
-    from lyssandra_tpu_torch.ops.cuda_fs_scan import kernel_supports
+    ``feature_sign_scan``'s call: the empty active set as the start (no
+    warm or unrolled seed), one activation an iteration, and a call its
+    wrapper launches for (``cuda_fs_scan.takes``)."""
+    from lyssandra_tpu_torch.ops import cuda_fs_scan
 
     return (
-        X.is_cuda and D.is_cuda
-        and D.dtype == torch.float32 and X.dtype == torch.float32
-        and not (cold_unroll and cold_unroll > 0)
+        not (cold_unroll and cold_unroll > 0)
         and not (warm_start and warm_start > 0)
         and n_activate == 1
-        and kernel_supports(D.shape[0], D.shape[1], max_active)
+        and cuda_fs_scan.takes(D, X, max_active)
     )
 
 
@@ -613,8 +598,10 @@ def feature_sign(
     A_run = 16 if (auto_capacity and max_active > 16) else max_active
     if cold_unroll and cold_unroll > 0:
         t_unroll = min(int(cold_unroll), A_run)
+        from lyssandra_tpu_torch.ops import cuda_fs
+
         fused = cold_backend == "pallas" and (
-            not on_gpu or _fs_cold_supported(D, X, t_unroll))
+            not on_gpu or cuda_fs.takes(D, X, t_unroll))
         cold_start = (_fs_unrolled_state_fused if fused
                       else _fs_unrolled_state)
         with span("lyssa.fs.cold"):

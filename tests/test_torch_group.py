@@ -185,7 +185,7 @@ def test_group_omp_on_cpu_launches_nothing(rng):
     greedy.group_omp(_t(D), _t(X), groups, T)
     greedy.group_omp(_t(D), _t(X), groups, T, dense=False)
     assert set(launch_counts().values()) == {0}
-    assert not greedy._group_fused_supported(_t(D), _t(X), 4, T)
+    assert not cuda_group.takes(_t(D), _t(X), 4, T)
     with pytest.raises(ValueError, match="T <= n_groups"):
         cuda_group.group_omp_fused(_t(D), _t(X), groups, 17)
 

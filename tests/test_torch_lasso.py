@@ -25,6 +25,7 @@ from lyssandra_tpu.utils.datasets import (
     synthetic_color_image as j_synthetic_color,
 )
 import lyssandra_tpu_torch as lt
+from lyssandra_tpu_torch.ops import cuda_fs
 from lyssandra_tpu_torch.ops.cuda_fs import (
     fs_cold_fused,
     kernel_supports,
@@ -337,7 +338,7 @@ def test_cold_kernel_envelope():
     assert not kernel_supports(192, 1024, 0)
     assert not kernel_supports(4096, 65536, 32)
     D = torch.ones(8, 16)
-    assert not tl._fs_cold_supported(D, torch.ones(8, 4), 4)
+    assert not cuda_fs.takes(D, torch.ones(8, 4), 4)
 
 
 def test_lasso_exports():

@@ -17,7 +17,7 @@ from lyssandra_tpu import oracle
 from lyssandra_tpu.ops.pallas_omp import omp_fused as pallas_omp_fused
 from lyssandra_tpu_torch import _build
 from lyssandra_tpu_torch.ops import (
-    cuda_gram, cuda_omp, cuda_select, launch_counts, reset_launch_counts,
+    _launch, cuda_omp, cuda_select, launch_counts, reset_launch_counts,
 )
 from lyssandra_tpu_torch.solvers import greedy
 from tests.conftest import make_problem
@@ -164,7 +164,7 @@ def _stub_cuda(monkeypatch):
         lyssa_omp_fused=record("gram"))
 
     def gram(A, B, *, symmetric=False):
-        cuda_gram.gram.launches += 1
+        _launch.count("gram")
         return torch.empty((A.shape[1], B.shape[1]), device=A.device)
 
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))

@@ -230,6 +230,44 @@ def test_launch_counters_stay_zero_on_cpu(rng):
         "fs_cold": 0, "fs_scan": 0, "select_abs_argmax": 0, "gram": 0}
 
 
+# the counters portbench sums and chip_smoke.py reads by name
+LAUNCH_KEYS = {
+    "omp_fused_t", "omp_fused_eps", "omp_residual_t", "omp_residual_eps",
+    "omp_residual_select", "omp_residual_update", "fused_patches",
+    "group_omp_fused", "fs_cold", "fs_scan", "select_abs_argmax", "gram"}
+
+
+@pytest.mark.parametrize("case", ["plain-versions", "reset", "keys"])
+def test_launch_registry(rng, case):
+    from lyssandra_tpu_torch.ops import _launch
+
+    lt.reset_launch_counts()
+    if case == "plain-versions":
+        # every wrapper on CPU tensors runs its plain version, uncounted
+        D = torch.randn(16, 40)
+        X = torch.randn(16, 8)
+        lt.ops.omp_fused(D, X, T=3)
+        lt.ops.omp_residual_fused(D, X, T=3, eps=0.1, eps_mode=True)
+        lt.ops.select_abs_argmax(X.T, D)
+        lt.ops.gram(D, X)
+        lt.ops.group_omp_fused(D, X, np.repeat(np.arange(10), 4), 2)
+        lt.ops.fs_cold_fused(D, X, lam=0.2, t_unroll=3)
+        lt.ops.fs_scan_fused(D, X, lam=0.2, max_iter=4)
+        lt.ops.fused_patch_pipeline_p1(torch.randn(12, 12), 4)
+        assert set(lt.launch_counts().values()) == {0}
+    elif case == "reset":
+        for key in LAUNCH_KEYS:
+            _launch.count(key)
+        assert set(lt.launch_counts().values()) == {1}
+        lt.reset_launch_counts()
+        assert set(lt.launch_counts().values()) == {0}
+    else:
+        counts = lt.launch_counts()
+        assert set(counts) == LAUNCH_KEYS
+        counts["gram"] = 5          # a copy: the registry keeps its count
+        assert lt.launch_counts()["gram"] == 0
+
+
 def test_dictionary_from_numpy_checks(rng):
     D = rng.standard_normal((16, 20))
     D /= np.linalg.norm(D, axis=0)

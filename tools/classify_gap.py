@@ -74,16 +74,9 @@ def coders(torch, cuda_omp, hold_lanes, calls):
             return idx, gamma, err, nsel
         return run
 
-    table = {"K1": traced, "plain": plain, "plain f64": plain64,
-             "swap 1%": swapped(100), "swap 5%": swapped(20),
-             "drop 5%": dropped(20)}
-    # the kernel's wrapper counts its launches on whatever the module's
-    # name omp_fused holds, so each stand-in carries the two counters
-    for coder in table.values():
-        for count in ("launches_t", "launches_eps"):
-            if not hasattr(coder, count):
-                setattr(coder, count, 0)
-    return table
+    return {"K1": traced, "plain": plain, "plain f64": plain64,
+            "swap 1%": swapped(100), "swap 5%": swapped(20),
+            "drop 5%": dropped(20)}
 
 
 def main():

@@ -31,7 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "_archive", "variants")
 PARENT = os.path.join(ROOT, "_archive", "parent")
 SEL = "lyssandra_tpu_torch/csrc/select.cu"
-PATCH_PY = "lyssandra_tpu_torch/ops/cuda_patches.py"
+LAUNCH_PY = "lyssandra_tpu_torch/ops/_launch.py"
 
 STREAM = ("    if (bfr::fits(p, K)) {\n        switch",
           "    if (false) {\n        switch")
@@ -60,8 +60,9 @@ VARIANTS = {
     "bf16 diagnostic: the epilogue on 1 of 8 n-tiles": {SEL: [
         (EPILOGUE, EPILOGUE.replace("ni < NI", "ni < 1"))]},
     "bf16 diagnostic: no mma": {SEL: [(RES_MMA, ";")]},
-    "K3 wrapper entering torch.cuda.device on every call": {PATCH_PY: [
-        ("with kernel_device(img):", "with torch.cuda.device(img.device):")]},
+    "every launch entering torch.cuda.device": {LAUNCH_PY: [
+        ("with kernel_device(like):",
+         "with torch.cuda.device(like.device):")]},
 }
 
 

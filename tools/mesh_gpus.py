@@ -21,6 +21,7 @@ results.  Needs at least two GPUs, and raises without.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -125,6 +126,7 @@ def profile_encode(torch, lt, Db, Xb, slot_devs, n):
     from torch.profiler import ProfilerActivity, profile
 
     from lyssandra_tpu_torch.parallel import make_mesh
+    from portbench.core.trace import _union
 
     mesh = None if slot_devs is None else make_mesh(data=4,
                                                      devices=slot_devs)
@@ -155,13 +157,8 @@ def profile_encode(torch, lt, Db, Xb, slot_devs, n):
             r[0] += 1
             r[1] += e.cpu_time_total / 1e3
     for i, sp in spans.items():
-        busy, last = 0.0, None
-        for a, b in sorted(sp):
-            if last is None or a > last:
-                busy, last = busy + b - a, b
-            elif b > last:
-                busy, last = busy + b - last, b
-        gpus[f"cuda:{i}"]["busy_ms"] = busy / 1e3
+        gpus[f"cuda:{i}"]["busy_ms"] = sum(
+            b - a for a, b in _union(sp, -math.inf, math.inf)) / 1e3
     return {"whole_ms": whole, "enqueue_ms": enqueue, "gpus": gpus,
             "runtime": runtime}
 

@@ -16,6 +16,7 @@ syncs the lasso solver counted, the kernel launches traced, and the device
 time by kernel, largest first.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -38,6 +39,8 @@ def profile_call(torch, fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from portbench.core.trace import _union
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -54,16 +57,8 @@ def profile_call(torch, fn):
         start, end = e.time_range.start, e.time_range.end
         by_name[short(e.name)] += (end - start) / 1e3
         spans.append((start, end))
-    launches = len(spans)
-    busy, last = 0.0, None
-    for start, end in sorted(spans):      # union of the device intervals
-        if last is None or start > last:
-            busy += end - start
-            last = end
-        elif end > last:
-            busy += end - last
-            last = end
-    return wall_ms, busy / 1e3, by_name, launches
+    busy = sum(e - s for s, e in _union(spans, -math.inf, math.inf))
+    return wall_ms, busy / 1e3, by_name, len(spans)
 
 
 def main():

@@ -174,7 +174,8 @@ Phases, in order; any failure raises and exits non-zero:
      warm-up chunk, its host syncs counted in torch's sync debug mode,
      then the timed epoch of 24 minibatches, ODL_CHUNKS chunks): one
      fs_scan and two product launches a coding block (its in-loop coder
-     is the search kernel), the reference's history
+     is the search kernel) and one online_sweep launch a minibatch (K9,
+     the atom sweep), the reference's history
      keys, the holdout objective falling, atoms in the unit ball; one more
      minibatch through _online_chunk from the learned state: A and B grow
      by Gamma Gamma^T and X Gamma^T (float64, 1e-4 of their norms), the
@@ -182,9 +183,13 @@ Phases, in order; any failure raises and exits non-zero:
      rtol 1e-3 of feature_sign's plain path (cold_backend="xla",
      cold_unroll=0) per lane; times by parts (coding, statistics, atom
      sweep, holdout) with CUDA events, and the coding's host syncs from
-     the learned D (the solver's counter); (m) partial_fit on three minibatches
-     of a stream from a data D0: one K6 and two product launches a
-     minibatch, K6 on the first held to the plain version's own
+     the learned D (the solver's counter); K9 from the learned state
+     against the float64 sweep (atom distances within 1e-5 largest, 1e-6
+     median) and one sweep timed (CUDA events, median of 5 warm calls) at
+     clusters of 4, 8 and 16 CTAs and at the one it picks, under 5 ms,
+     beside the plain loop; (m) partial_fit on three minibatches
+     of a stream from a data D0: one K6, two product and one sweep
+     launches a minibatch, K6 on the first held to the plain version's own
      float32/float64 agreement (less 0.1) as in 5d, fit over the same
      minibatches from the same state within 1% in holdout objective; (n)
      config 5 on digits-like data made here (digits_problem: 1,257 training
@@ -1036,6 +1041,55 @@ def ksvd_paths(torch, lt, dev, img, noisy, img_d):
     return (launches_i, launches_j, launches_k), out
 
 
+def sweep_kernel_case(torch, D, A, B):
+    """K9, the online sweep kernel (csrc/online_sweep.cu), at config 4 from
+    a learned state (D, A, B): one sweep against the sweep in float64 of
+    the same float32 inputs (atom distances, held to the online check's
+    limits, 1e-5 largest and 1e-6 median), then one sweep timed (CUDA
+    events, median of REPS warm calls) at every cluster of 4 CTAs or more
+    that fits and at the one ``cluster_size`` picks, beside the plain loop.
+    The bound: 2 p K flops an atom, K atoms, at the float32 peak, against
+    D, A and B read and D written once; a chain of K dependent steps, it
+    is not the kernel's bound, so the time an atom is the figure to
+    watch."""
+    import importlib
+
+    from lyssandra_tpu_torch import _build
+
+    sw = importlib.import_module(
+        "lyssandra_tpu_torch.ops.cuda_online_sweep")
+    p, K = D.shape
+    got = sw.online_sweep_fused(D, A, B, 1)
+    want = sw.online_sweep_reference(D.double(), A.double(), B.double(), 1)
+    gaps = torch.linalg.vector_norm(got.double() - want, dim=0)
+    gap_max, gap_median = float(gaps.max()), float(gaps.median())
+    chosen = sw.cluster_size(p, K)
+    by_cluster = {c: cuda_ms(torch, lambda c=c: sw.online_sweep_fused(
+        D, A, B, 1, cluster=c)) for c in sw.CLUSTERS
+        if c >= 4 and sw.smem_bytes(p, K, c) <= _build.SMEM_PER_BLOCK}
+    kernel_ms = cuda_ms(torch, lambda: sw.online_sweep_fused(D, A, B, 1))
+    plain_ms = cuda_ms(torch, lambda: sw.online_sweep_reference(D, A, B, 1))
+    bound = bound_ms(4.0 * (3 * p * K + K * K), 2.0 * p * K * K)
+    dead = int((torch.diagonal(A) < 1e-10).sum())
+    print(f"K9 online sweep at p={p}, K={K} from the learned state ({dead} "
+          f"dead atoms): atom distance to the float64 sweep max "
+          f"{gap_max:.3g}, median {gap_median:.3g}; one sweep "
+          f"{kernel_ms:.4f} ms at c={chosen} "
+          f"({kernel_ms * 1e3 / K:.3f} us an atom), by cluster "
+          + ", ".join(f"c={c} {t:.4f}" for c, t in by_cluster.items())
+          + f" ms; plain loop {plain_ms:.3f} ms; bound {bound[0]:.4f} ms "
+          f"({bound[1]})")
+    check(gap_max <= 1e-5 and gap_median <= 1e-6,
+          f"K9 against the float64 sweep: max {gap_max}, median "
+          f"{gap_median}")
+    check(kernel_ms < 5.0, f"K9: one config-4 sweep took {kernel_ms} ms")
+    return {"p": p, "K": K, "dead_atoms": dead, "gap_max": gap_max,
+            "gap_median": gap_median, "cluster": chosen, "ms": kernel_ms,
+            "us_per_atom": kernel_ms * 1e3 / K, "by_cluster_ms": by_cluster,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1]}
+
+
 def learning_paths(torch, lt, dev):
     """Paths (l)-(n): online dictionary learning at config 4's full width
     (``fit``, then ``partial_fit``) and config 5's classifiers.  Returns
@@ -1082,9 +1136,11 @@ def learning_paths(torch, lt, dev):
     n_calls = cfg4.code_blocks * n_mb
     check(launches_l["fs_scan"] == n_calls
           and launches_l["gram"] == 2 * n_calls
-          and sum(launches_l.values()) == 3 * n_calls,
+          and launches_l["online_sweep"] == n_mb
+          and sum(launches_l.values()) == 3 * n_calls + n_mb,
           f"online fit: one fs_scan and two product launches a coding "
-          f"block expected ({n_calls} blocks), got {launches_l}")
+          f"block ({n_calls} blocks) and one sweep launch a minibatch "
+          f"({n_mb}) expected, got {launches_l}")
     hist = learner.history_
     keys = {"step", "batch_objective", "avg_nnz", "holdout_objective",
             "seconds", "patches_per_sec"}            # the reference's keys
@@ -1176,6 +1232,7 @@ def learning_paths(torch, lt, dev):
     parts["holdout (s a chunk)"] = cuda_ms(
         torch, lambda: online.holdout_objective(Dp, Xh, LAM), reps=3) / 1e3
     del Dp, Ap, Bp, Gp
+    out["online_sweep"] = sweep_kernel_case(torch, st.D, st.A, st.B)
     out["online_fit"] = {
         "N": n_fit, "epoch_N": ODL_N, "K": K4, "p": P4, "lam": LAM,
         "batch_size": ODL_BS, "chunk_batches": cfg4.chunk_batches,
@@ -1225,9 +1282,10 @@ def learning_paths(torch, lt, dev):
     launches_m = lt.launch_counts()
     print(f"path (m) partial_fit launches: {launches_m}")
     check(launches_m["fs_cold"] == 3 and launches_m["gram"] == 6
-          and sum(launches_m.values()) == 9,
-          f"partial_fit: one K6 and two product launches a minibatch "
-          f"expected, got {launches_m}")
+          and launches_m["online_sweep"] == 3
+          and sum(launches_m.values()) == 12,
+          f"partial_fit: one K6, two product and one sweep launch a "
+          f"minibatch expected, got {launches_m}")
     got = fs_cold_fused(D0, mbs[0], lam=LAM, t_unroll=TUN)
     want = fs_cold_fused_reference(D0, mbs[0], lam=LAM, t_unroll=TUN)
     want64 = fs_cold_fused_reference(D0.double(), mbs[0].double(), lam=LAM,
@@ -3879,6 +3937,20 @@ def main():
          "bound_ms": scan_t[1024]["bound_ms"],
          "bound_by": scan_t[1024]["bound_by"], "library_ms": None,
          "by_lanes": scan_t},
+        # one sweep at config 4 from path (l)'s learned state; max_abs_err
+        # is the widest atom distance to the float64 sweep
+        {"name": "online_sweep", "route": "cuda",
+         "source": "lyssandra_tpu_torch/csrc/online_sweep.cu",
+         "replaces": "none: lyssandra_tpu/dict_learning/online.py's "
+                     "_dict_update_body lax.scan",
+         "launches": launches_l["online_sweep"]
+         + launches_m["online_sweep"] + launches_r["online_sweep"]
+         + launches_s["online_sweep"],
+         "max_abs_err": learning_out["online_sweep"]["gap_max"],
+         **{k: learning_out["online_sweep"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "us_per_atom", "by_cluster_ms", "cluster")},
+         "library_ms": None},
         {"name": "select_abs_argmax", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/select.cu",
          "replaces": "lyssandra_tpu/ops/pallas_select.py:35",

@@ -68,6 +68,8 @@ _SIGNATURES = {
     "lyssa_select_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # A, B, p, M, K, symmetric, C, stream
     "lyssa_gram": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # D, AT, B, Dout, p, K, n_sweeps, cluster, stream
+    "lyssa_online_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -168,6 +170,8 @@ def load() -> ctypes.CDLL:
     lib.lyssa_omp_residual_step_smem_bytes.restype = ctypes.c_size_t
     lib.lyssa_fs_scan_smem_bytes.argtypes = [_I]
     lib.lyssa_fs_scan_smem_bytes.restype = ctypes.c_size_t
+    lib.lyssa_online_sweep_smem_bytes.argtypes = [_I, _I, _I]
+    lib.lyssa_online_sweep_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 

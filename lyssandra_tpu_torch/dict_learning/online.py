@@ -20,8 +20,12 @@ metrics record and one checkpoint.  Its in-loop coder is
 ``feature_sign_scan``, which on a GPU runs its loop as one kernel a coding
 block (``ops/cuda_fs_scan.py``); ``partial_fit`` and ``online_dl_step``
 code through ``feature_sign``, which on a GPU starts from the fused
-cold-start kernel (``ops/cuda_fs.py``).  The atom sweep and the
-statistics never read a value on the host.
+cold-start kernel (``ops/cuda_fs.py``).  On a GPU the atom sweep runs all
+its sweeps as one kernel launch (``ops/cuda_online_sweep.py``, one
+cluster of CTAs that hold D's rows in shared memory); on the CPU and
+outside that kernel's envelope, as a plain loop of about 8 launches an
+atom.  The atom sweep and the statistics never read a value on the
+host.
 
 With a ``mesh`` (``parallel.Mesh``), ``fit`` splits each minibatch's lanes
 over the data slots and codes each split on its slot; Gamma Gamma^T and
@@ -40,6 +44,7 @@ import torch
 
 from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.config import OnlineDLConfig
+from lyssandra_tpu_torch.ops import cuda_online_sweep
 from lyssandra_tpu_torch.ops.dictionaries import init_dictionary
 from lyssandra_tpu_torch.parallel.collectives import slot_sum
 from lyssandra_tpu_torch.parallel.mesh import (
@@ -65,23 +70,20 @@ class OnlineDLState(NamedTuple):
     #                      the host keeps, so reading it never syncs)
 
 
-@spanned("lyssa.online.sweep")
 def _dict_update_body(D, A, B, n_sweeps: int):
     """``n_sweeps`` sweeps of atom updates over k = 0..K-1 in order, each
     seeing the atoms before it; an atom with A_kk < 1e-10 (no use yet)
-    keeps its value.  Returns a new D; the inputs are not changed."""
-    D = D.clone()
-    K = D.shape[1]
-    akk = torch.diagonal(A)
-    dead = akk < 1e-10
-    akk = akk.clamp_min(1e-10)
-    for _ in range(n_sweeps):
-        for k in range(K):
-            dk = D[:, k]
-            u = dk + torch.addmv(B[:, k], D, A[:, k], alpha=-1.0) / akk[k]
-            u = u / torch.linalg.vector_norm(u).clamp_min(1.0)
-            D[:, k] = torch.where(dead[k], dk, u)
-    return D
+    keeps its value.  Returns a new D; the inputs are not changed.
+
+    Where ``ops.cuda_online_sweep.takes`` holds (float32 on one GPU, D's
+    rows fit a cluster's shared memory) the sweeps run as one launch of
+    the kernel; elsewhere, the CPU included, as the plain loop.  The span
+    ``lyssa.online.sweep`` says which: ``fused`` 1 or 0."""
+    fused = cuda_online_sweep.takes(D, A, B, n_sweeps)
+    with span("lyssa.online.sweep", fused=int(fused)):
+        if fused:
+            return cuda_online_sweep.online_sweep_fused(D, A, B, n_sweeps)
+        return cuda_online_sweep.online_sweep_reference(D, A, B, n_sweeps)
 
 
 def _code_batch(D, Xb, lam, coder: str, fs_opts: dict,

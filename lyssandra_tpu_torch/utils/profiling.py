@@ -27,6 +27,9 @@ function):
 - ``lyssa.online.code``: its coding; ``syncs``, the solvers' host reads
   during it (the ``solvers.lasso.host_syncs()`` delta);
 - ``lyssa.online.sweep``: its atom sweep (``_dict_update_body``);
+  ``fused``, 1 where the sweeps ran as one launch of the kernel
+  ``csrc/online_sweep.cu`` (float32 on a GPU, inside its envelope), else 0
+  (the plain loop, about 8 launches an atom);
 - ``lyssa.fs.cold``: ``feature_sign``'s cold start (the fused kernel on a
   GPU).
 

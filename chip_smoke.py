@@ -140,7 +140,8 @@ Phases, in order; any failure raises and exits non-zero:
      read as before them: (i) KSVDLearner at config 2's full width (50,000
      8x8 patches of the 512^2 barbara and lena stand-ins, K=512, T=8, 20
      iterations, after a one-iteration warm-up): 4 K1 and 4 product
-     launches an iteration, the sweep phase monotone on every iteration
+     launches and one K10 (the B=1 atom sweep) an iteration, the sweep
+     phase monotone on every iteration
      (objective <= 1.001 x the post-coding one), no rise above 3% between
      iterations, net progress, unit-norm atoms, the reference's history
      keys, the host syncs of the fit (torch's sync debug mode, checked on
@@ -157,7 +158,11 @@ Phases, in order; any failure raises and exits non-zero:
      plain residual form from the same D (no K1 launch): post-coding
      objectives within 1e-5 and 1e-4, post-sweep objectives within 1%,
      timed by parts (coding, sweep, stats and replacement) with CUDA
-     events; (j) compact codes, 3
+     events; K10 from the learned D and its K1 codes against the dense
+     sweep in float64 (atom distances within 1e-4 largest, 1e-6 median),
+     two launches bit for bit, one sweep timed (CUDA events, median of 5
+     warm calls), under 10 ms, beside its plain version (the dense sweep,
+     eager) and the dense sweep replayed from its CUDA graph; (j) compact codes, 3
      iterations at atom_block=8, objective within 5% of dense codes at
      atom_block=8, peak device memory of both routes; (k) denoise_adaptive
      of the 512^2 image at sigma=25 (K=256, 12 iterations on 30,000
@@ -746,9 +751,10 @@ def ksvd_paths(torch, lt, dev, img, noisy, img_d):
     print(f"path (i) KSVDLearner fit launches: {launches_i}; host syncs "
           f"{syncs}")
     check(launches_i["omp_fused_t"] == n_blocks * KSVD_ITERS
-          and launches_i["gram"] == n_blocks * KSVD_ITERS,
-          f"K-SVD fit: {n_blocks} K1 and {n_blocks} product launches an "
-          f"iteration expected, got {launches_i}")
+          and launches_i["gram"] == n_blocks * KSVD_ITERS
+          and launches_i["ksvd_sweep"] == KSVD_ITERS,
+          f"K-SVD fit: {n_blocks} K1, {n_blocks} product and one sweep "
+          f"launches an iteration expected, got {launches_i}")
     hist = learner.history_
     keys = {"objective", "rmse", "avg_nnz", "atoms_replaced",
             "objective_coding", "seconds", "dispatch_seconds",
@@ -862,6 +868,8 @@ def ksvd_paths(torch, lt, dev, img, noisy, img_d):
         for i, k in enumerate(parts):
             parts[k].append(ev[i].elapsed_time(ev[i + 1]) / 1e3)
     del Gamma, Rc
+    out["ksvd_sweep"] = ksvd_sweep_case(
+        torch, X2, learner.D_, learner.encoder.encode(X2, learner.D_))
     parts = {k: statistics.median(v) for k, v in parts.items()}
     same = max(abs(a / b - 1.0) for a, b in zip(step_objs, objs))
     check(same <= 1e-5, f"K-SVD by parts {step_objs} against the fit {objs}")
@@ -1039,6 +1047,63 @@ def ksvd_paths(torch, lt, dev, img, noisy, img_d):
           f"adaptive {p_adapt:.4f} dB, plain versions with its D "
           f"{p_plain:.4f} dB")
     return (launches_i, launches_j, launches_k), out
+
+
+def ksvd_sweep_case(torch, X, D, Gamma):
+    """K10, K-SVD's sweep kernel (csrc/ksvd_sweep.cu), at config 2 from a
+    learned D and its codes from K1: one sweep against the dense sweep in
+    float64 of the same float32 inputs (atom distances, held to the ksvd-c2
+    check's limits, 1e-4 largest and 1e-6 median), two launches bit for
+    bit, then one sweep timed (CUDA events, median of REPS warm calls)
+    beside the plain version (the dense sweep, eager) and, as the yardstick
+    (library_ms), the dense sweep replayed from its CUDA graph, the path
+    the kernel took over.  The bound: the users' rows of Rt read once and
+    written once and the code rows read and written once at the card's
+    bandwidth, 8 p flops a code; a chain of K dependent steps, it is not
+    the kernel's bound, so the time an atom is the figure to watch."""
+    import importlib
+
+    sw = importlib.import_module("lyssandra_tpu_torch.ops.cuda_ksvd_sweep")
+    tksvd = importlib.import_module("lyssandra_tpu_torch.dict_learning.ksvd")
+    p, N = X.shape
+    K = D.shape[1]
+    got = sw.ksvd_sweep_fused(X, D, Gamma, 1)
+    again = sw.ksvd_sweep_fused(X, D, Gamma, 1)
+    repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tksvd._sweep(X.double(), D.double(), Gamma.double(), 1, 1)
+    gaps = torch.linalg.vector_norm(got[0].double() - want[0], dim=0)
+    gap_max, gap_median = float(gaps.max()), float(gaps.median())
+    del want, again
+    nnz = float((Gamma != 0).sum())
+    kernel_ms = cuda_ms(torch, lambda: sw.ksvd_sweep_fused(X, D, Gamma, 1))
+    plain_ms = cuda_ms(torch, lambda: tksvd._sweep(X, D, Gamma, 1, 1),
+                       reps=1)
+    # the dense sweep's graph: its first call runs eager, its second
+    # captures, the rest replay (the median of REPS)
+    takes = sw.takes
+    sw.takes = lambda *a: False
+    try:
+        graph_ms_ = cuda_ms(torch, lambda: tksvd.ksvd_atom_update(X, D, Gamma))
+    finally:
+        sw.takes = takes
+    bound = bound_ms(4.0 * (2 * p * nnz + 2 * K * N), 8.0 * p * nnz)
+    print(f"K10 K-SVD sweep at p={p}, K={K}, N={N} ({nnz / K:.1f} users an "
+          f"atom) from the learned D: atom distance to the float64 sweep max "
+          f"{gap_max:.3g}, median {gap_median:.3g}; two launches "
+          f"{'agree' if repeats else 'DIFFER'} bit for bit; one sweep "
+          f"{kernel_ms:.4f} ms ({kernel_ms * 1e3 / K:.3f} us an atom); "
+          f"plain version {plain_ms:.3f} ms; dense sweep replayed "
+          f"{graph_ms_:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]})")
+    check(gap_max <= 1e-4 and gap_median <= 1e-6,
+          f"K10 against the float64 sweep: max {gap_max}, median "
+          f"{gap_median}")
+    check(repeats, "K10: two launches gave different bits")
+    check(kernel_ms < 10.0, f"K10: one config-2 sweep took {kernel_ms} ms")
+    return {"p": p, "K": K, "N": N, "users_per_atom": nnz / K,
+            "gap_max": gap_max, "gap_median": gap_median,
+            "ms": kernel_ms, "us_per_atom": kernel_ms * 1e3 / K,
+            "plain_ms": plain_ms, "library_ms": graph_ms_,
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def sweep_kernel_case(torch, D, A, B):
@@ -3951,6 +4016,18 @@ def main():
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "us_per_atom", "by_cluster_ms", "cluster")},
          "library_ms": None},
+        # one B=1 sweep at config 2 from path (i)'s learned D and its K1
+        # codes; max_abs_err is the widest atom distance to the float64
+        # sweep; library_ms the dense sweep replayed from its CUDA graph
+        {"name": "ksvd_sweep", "route": "cuda",
+         "source": "lyssandra_tpu_torch/csrc/ksvd_sweep.cu",
+         "replaces": "none: lyssandra_tpu/dict_learning/ksvd.py's "
+                     "atom sweep lax loop",
+         "launches": sum(counts["ksvd_sweep"] for counts in paths),
+         "max_abs_err": ksvd_out["ksvd_sweep"]["gap_max"],
+         **{k: ksvd_out["ksvd_sweep"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "us_per_atom", "library_ms")}},
         {"name": "select_abs_argmax", "route": "cuda",
          "source": "lyssandra_tpu_torch/csrc/select.cu",
          "replaces": "lyssandra_tpu/ops/pallas_select.py:35",

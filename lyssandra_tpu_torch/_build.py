@@ -70,6 +70,8 @@ _SIGNATURES = {
     "lyssa_gram": [_P, _P, _I, _I, _I, _I, _P, _P],
     # D, AT, B, Dout, p, K, n_sweeps, cluster, stream
     "lyssa_online_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # D, Gamma, Rt, Dout, Gout, p, K, N, n_power, stream
+    "lyssa_ksvd_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -172,6 +174,8 @@ def load() -> ctypes.CDLL:
     lib.lyssa_fs_scan_smem_bytes.restype = ctypes.c_size_t
     lib.lyssa_online_sweep_smem_bytes.argtypes = [_I, _I, _I]
     lib.lyssa_online_sweep_smem_bytes.restype = ctypes.c_size_t
+    lib.lyssa_ksvd_sweep_smem_bytes.argtypes = [_I, _I]
+    lib.lyssa_ksvd_sweep_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 

@@ -20,13 +20,16 @@ is a plain float32 matmul (TF32 is off package-wide).  An iteration never
 reads a value on the host: the learner fetches the stats once per fit, or
 once per iteration when something on the host consumes them.
 
-On a GPU the dense sweep is K/B rounds of about 20 small kernels on fixed
-shapes, so its host dispatch, not the device, sets its time.  There
-``ksvd_atom_update`` replays it from a CUDA graph: a shape's first sweep
-runs eager on a side stream, its second captures the sweep there on static
-buffers, and every later one copies its inputs into them, replays, and
-returns clones of the outputs.  The statics never reach a caller.  A few
-captured shapes, up to 1 GiB of buffers, are kept, least recently used
+On a GPU the B=1 sweep runs as one launch of a hand-written kernel
+(``ops/cuda_ksvd_sweep.py``: one cluster of CTAs that split the lanes, each
+atom's work on its users alone) wherever that kernel's ``takes`` holds.
+Elsewhere on a GPU the dense sweep is K/B rounds of about 20 small kernels
+on fixed shapes, so its host dispatch, not the device, sets its time.
+There ``ksvd_atom_update`` replays it from a CUDA graph: a shape's first
+sweep runs eager on a side stream, its second captures the sweep there on
+static buffers, and every later one copies its inputs into them, replays,
+and returns clones of the outputs.  The statics never reach a caller.  A
+few captured shapes, up to 1 GiB of buffers, are kept, least recently used
 first out; the sweep runs eager on the CPU, inside a caller's own capture,
 for a larger shape, and where a capture runs out of device memory.
 """
@@ -42,6 +45,7 @@ import torch
 
 from lyssandra_tpu_torch._device import resolve_device
 from lyssandra_tpu_torch.config import KSVDConfig
+from lyssandra_tpu_torch.ops import cuda_ksvd_sweep
 from lyssandra_tpu_torch.ops.dictionaries import (
     init_dictionary,
     normalize_atoms,
@@ -306,7 +310,10 @@ def ksvd_atom_update(X, D, Gamma, exact: bool = False, svd_iters: int = 3,
     block, Gauss-Seidel across blocks.  B shrinks to the largest divisor
     of K; B=1 is the oracle's sequential order.
 
-    On a GPU the sweep is replayed from a CUDA graph, one per key (device,
+    On a GPU, outside a caller's own capture, where
+    ``ops.cuda_ksvd_sweep.takes`` holds (float32, B=1, p and N within the
+    kernel's envelope), the sweep is one launch of that kernel.  Elsewhere
+    on a GPU it is replayed from a CUDA graph, one per key (device,
     dtype, p, N, K, B, power steps).  A key's first sweep runs eager, on a
     side stream of the calling thread, which that warms up for a capture.
     Its second is captured on that stream from copies of its inputs, the
@@ -319,14 +326,17 @@ def ksvd_atom_update(X, D, Gamma, exact: bool = False, svd_iters: int = 3,
     stream on the CPU, on a stream that is capturing already, in a thread
     other than the one capturing its key, for a key larger than the
     cache, and for a key whose capture ran out of device memory.  The
-    sweep is the span ``lyssa.ksvd.sweep``, whose ``replayed`` is 1 for a
-    replay and 0 when it ran eager or captured.
+    sweep is the span ``lyssa.ksvd.sweep``, whose ``fused`` is 1 where the
+    kernel ran, else 0, and ``replayed`` 1 for a replay, else 0.
     """
     B = _block_size(D.shape[1], atom_block)
     n_power = svd_iters if exact else 1
     key = _graph_key(X, D, B, n_power)
+    if key is not None and cuda_ksvd_sweep.takes(X, D, Gamma, B, n_power):
+        with span("lyssa.ksvd.sweep", replayed=0, fused=1):
+            return cuda_ksvd_sweep.ksvd_sweep_fused(X, D, Gamma, n_power)
     mode, graph = _sweep_mode(key)
-    with span("lyssa.ksvd.sweep", replayed=int(mode == "replays")):
+    with span("lyssa.ksvd.sweep", replayed=int(mode == "replays"), fused=0):
         if mode == "eager":
             return _sweep(X, D, Gamma, B, n_power)
         with torch.cuda.device(X.device):

@@ -3,6 +3,7 @@ from lyssandra_tpu_torch.ops.cuda_fs import fs_cold_fused
 from lyssandra_tpu_torch.ops.cuda_fs_scan import fs_scan_fused
 from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.ops.cuda_group import group_omp_fused
+from lyssandra_tpu_torch.ops.cuda_ksvd_sweep import ksvd_sweep_fused
 from lyssandra_tpu_torch.ops.cuda_omp import omp_fused, omp_residual_fused
 from lyssandra_tpu_torch.ops.cuda_online_sweep import online_sweep_fused
 from lyssandra_tpu_torch.ops.cuda_patches import (

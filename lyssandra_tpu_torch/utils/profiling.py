@@ -19,7 +19,9 @@ function):
 - ``lyssa.ksvd.iteration``: each iteration of ``fit`` with its metrics;
 - ``lyssa.ksvd.sweep``: the atom sweep of a K-SVD iteration (the dense
   one is ``ksvd_atom_update``, whole); ``replayed``, 1 where the dense
-  sweep ran as a replay of its CUDA graph, else 0;
+  sweep ran as a replay of its CUDA graph, else 0; ``fused``, 1 where it
+  ran as one launch of the kernel ``csrc/ksvd_sweep.cu`` (float32 on a GPU,
+  one atom a step, inside its envelope), else 0;
 - ``lyssa.ksvd.post``: its stats, atom replacement and normalisation;
 - ``lyssa.online.fit``: ``OnlineDictionaryLearner.fit``, whole;
 - ``lyssa.online.step``: ``dict_learning.online.minibatch_update``, the

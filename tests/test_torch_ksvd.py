@@ -140,7 +140,8 @@ def test_sweep_span_carries_replayed_zero_on_the_cpu(rng, exact):
         recs = [r for r in spans() if r.name == "lyssa.ksvd.sweep"]
     finally:
         clear_spans()
-    assert len(recs) == 1 and recs[0].attrs == {"replayed": 0}
+    # the dense sweep on the CPU: neither replayed nor the kernel
+    assert len(recs) == 1 and recs[0].attrs == {"replayed": 0, "fused": 0}
 
 
 def _key(i, n=8):

@@ -1,5 +1,7 @@
 """The dense K-SVD sweep replayed from its CUDA graph, on the card: at the
-adaptive denoiser's training shape (p=64, K=256, N=30,000, B=1) the first
+adaptive denoiser's training shape (p=64, K=256, N=30,000, B=1), with the
+sweep kernel's envelope (``ops.cuda_ksvd_sweep.takes``) refusing every key
+as it refuses those past its limits, the first
 sweep of a shape runs eager, the second captures (on a cold stream after a
 warm-up sweep that is its result), and every replay equals
 the eager sweep bit for bit, leaves its inputs alone and hands out
@@ -19,6 +21,8 @@ import torch
 from lyssandra_tpu_torch.utils import clear_spans, spans
 
 tksvd = importlib.import_module("lyssandra_tpu_torch.dict_learning.ksvd")
+cuda_ksvd_sweep = importlib.import_module(
+    "lyssandra_tpu_torch.ops.cuda_ksvd_sweep")
 
 P, K, N, T = 64, 256, 30_000, 6
 
@@ -27,6 +31,8 @@ P, K, N, T = 64, 256, 30_000, 6
 def card(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (run on the card)")
+    # the graph path: the key that the kernel would take goes to it
+    monkeypatch.setattr(cuda_ksvd_sweep, "takes", lambda *a: False)
     # a cache of this test's own
     monkeypatch.setattr(tksvd, "_graphs", OrderedDict())
     monkeypatch.setattr(tksvd, "_no_graph", set())

@@ -282,8 +282,8 @@ def test_kernel_library_named_by_source_hash():
     names = sorted(p.name for p in _build.sources())
     assert names == ["errors.cu", "fs_cold.cu", "fs_scan.cu",
                      "fused_patches.cu", "gram.cu", "group_omp.cu",
-                     "omp_fused.cu", "omp_residual.cu", "online_sweep.cu",
-                     "select.cu"]
+                     "ksvd_sweep.cu", "omp_fused.cu", "omp_residual.cu",
+                     "online_sweep.cu", "select.cu"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()

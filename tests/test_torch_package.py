@@ -228,7 +228,7 @@ def test_launch_counters_stay_zero_on_cpu(rng):
         "omp_residual_eps": 0, "omp_residual_select": 0,
         "omp_residual_update": 0, "fused_patches": 0, "group_omp_fused": 0,
         "fs_cold": 0, "fs_scan": 0, "select_abs_argmax": 0, "gram": 0,
-        "online_sweep": 0}
+        "online_sweep": 0, "ksvd_sweep": 0}
 
 
 # the counters portbench sums and chip_smoke.py reads by name
@@ -236,7 +236,7 @@ LAUNCH_KEYS = {
     "omp_fused_t", "omp_fused_eps", "omp_residual_t", "omp_residual_eps",
     "omp_residual_select", "omp_residual_update", "fused_patches",
     "group_omp_fused", "fs_cold", "fs_scan", "select_abs_argmax", "gram",
-    "online_sweep"}
+    "online_sweep", "ksvd_sweep"}
 
 
 @pytest.mark.parametrize("case", ["plain-versions", "reset", "keys"])
@@ -257,6 +257,7 @@ def test_launch_registry(rng, case):
         lt.ops.fs_scan_fused(D, X, lam=0.2, max_iter=4)
         lt.ops.fused_patch_pipeline_p1(torch.randn(12, 12), 4)
         lt.ops.online_sweep_fused(D, torch.eye(40), torch.randn(16, 40), 1)
+        lt.ops.ksvd_sweep_fused(X, D[:, :6], torch.randn(6, 8), 1)
         assert set(lt.launch_counts().values()) == {0}
     elif case == "reset":
         for key in LAUNCH_KEYS:

@@ -567,7 +567,10 @@ def feature_sign(
       iteration, CG iterations per solve, refinements per outer iteration.
 
     The outer iterations run in segments of 16, 32, then 64 at most
-    (``max_iter`` in all).
+    (``max_iter`` in all).  The cold start, the segments and the polish
+    are the spans ``lyssa.fs.cold``, ``lyssa.fs.loop`` and
+    ``lyssa.fs.polish`` (``utils.profiling``); the overflow re-solve, a
+    call of its own, opens its own.
     """
     if max_iter < 1:
         raise ValueError(f"max_iter must be >= 1, got {max_iter}")
@@ -618,47 +621,54 @@ def feature_sign(
         state = _fs_init(A0, lam, A_run)
     seg = dict(max_active=A_run, max_inner=max_inner, max_cg=max_cg,
                n_activate=n_activate)
-    state, res, all_done = _fs_loop(Dt, Xt, A0, lam, state,
-                                    max_iter=seg_plan[0], **seg)
-    lanes = None            # narrow-batch lane ids (None = full width)
-    Xt_n, A0_n = Xt, A0
-    for seg_i in seg_plan[1:]:
-        if all_done:        # every later segment would run no iteration
-            break
-        if compact_stragglers:
-            bad = _host(~state[5])      # still running
-            nbad = int(bad.sum())
-            if nbad == 0:
+    with span("lyssa.fs.loop") as attrs:
+        s0 = None if attrs is None else _host.count
+        state, res, all_done = _fs_loop(Dt, Xt, A0, lam, state,
+                                        max_iter=seg_plan[0], **seg)
+        segments = 1
+        lanes = None            # narrow-batch lane ids (None = full width)
+        Xt_n, A0_n = Xt, A0
+        for seg_i in seg_plan[1:]:
+            if all_done:        # every later segment would run no iteration
                 break
-            cur = state[0].shape[0]
-            if nbad <= cur // 2:
-                cols = np.where(bad)[0]
-                width = 256
-                while width < nbad:
-                    width *= 2
-                sel = np.zeros(width, np.int64)
-                sel[:nbad] = cols
-                selt = torch.from_numpy(sel).to(D.device)
-                pad_done = torch.from_numpy(
-                    np.arange(width) >= nbad).to(D.device)
-                state = _gather_lanes(state, selt, pad_done)
-                Xt_n = Xt_n[selt]
-                A0_n = A0_n[selt]
-                lanes = cols if lanes is None else lanes[cols]
-        state, res_n, all_done = _fs_loop(Dt, Xt_n, A0_n, lam, state,
-                                          max_iter=seg_i, **seg)
-        if lanes is None:
-            res = res_n
-        else:
-            nb = len(lanes)
-            lt = torch.from_numpy(lanes).to(D.device)
-            Gamma = res.Gamma.clone()
-            Gamma[:, lt] = res_n.Gamma[:, :nb]
-            done = res.done.clone()
-            done[lt] = res_n.done[:nb]
-            overflow = res.overflow.clone()
-            overflow[lt] = res_n.overflow[:nb]
-            res = FeatureSignResult(Gamma, res_n.n_iter, done, overflow)
+            if compact_stragglers:
+                bad = _host(~state[5])      # still running
+                nbad = int(bad.sum())
+                if nbad == 0:
+                    break
+                cur = state[0].shape[0]
+                if nbad <= cur // 2:
+                    cols = np.where(bad)[0]
+                    width = 256
+                    while width < nbad:
+                        width *= 2
+                    sel = np.zeros(width, np.int64)
+                    sel[:nbad] = cols
+                    selt = torch.from_numpy(sel).to(D.device)
+                    pad_done = torch.from_numpy(
+                        np.arange(width) >= nbad).to(D.device)
+                    state = _gather_lanes(state, selt, pad_done)
+                    Xt_n = Xt_n[selt]
+                    A0_n = A0_n[selt]
+                    lanes = cols if lanes is None else lanes[cols]
+            state, res_n, all_done = _fs_loop(Dt, Xt_n, A0_n, lam, state,
+                                              max_iter=seg_i, **seg)
+            segments += 1
+            if lanes is None:
+                res = res_n
+            else:
+                nb = len(lanes)
+                lt = torch.from_numpy(lanes).to(D.device)
+                Gamma = res.Gamma.clone()
+                Gamma[:, lt] = res_n.Gamma[:, :nb]
+                done = res.done.clone()
+                done[lt] = res_n.done[:nb]
+                overflow = res.overflow.clone()
+                overflow[lt] = res_n.overflow[:nb]
+                res = FeatureSignResult(Gamma, res_n.n_iter, done, overflow)
+        if attrs is not None:
+            attrs["syncs"] = _host.count - s0
+            attrs["segments"] = segments
     if A_run < max_active and _host_bool(res.overflow.any()):
         # reduced-capacity overflow is this run's artifact: re-solve those
         # lanes exactly at the full capacity (a power-of-two width)
@@ -686,7 +696,8 @@ def feature_sign(
         overflow[ct] = sub.overflow[:nb]
         res = FeatureSignResult(Gamma, res.n_iter, done, overflow)
     if polish:
-        res = _fs_polish(D, X, lam, res)
+        with span("lyssa.fs.polish"):
+            res = _fs_polish(D, X, lam, res)
     return res if full_result else res.Gamma
 
 

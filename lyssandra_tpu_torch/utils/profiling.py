@@ -33,7 +33,12 @@ function):
   ``csrc/online_sweep.cu`` (float32 on a GPU, inside its envelope), else 0
   (the plain loop, about 8 launches an atom);
 - ``lyssa.fs.cold``: ``feature_sign``'s cold start (the fused kernel on a
-  GPU).
+  GPU);
+- ``lyssa.fs.loop``: its segmented loop after the start (the overflow
+  re-solve, a ``feature_sign`` call of its own, opens its own spans after
+  it); ``syncs``, the solvers' host reads inside it (the
+  ``solvers.lasso.host_syncs()`` delta), ``segments``, the segments run;
+- ``lyssa.fs.polish``: its FISTA-500 polish, gate included.
 
 While a torch profiler runs (``profile_trace``, or any
 ``torch.profiler.profile``), each span is a ``record_function`` range of

@@ -80,6 +80,18 @@ Phases, in order; any failure raises and exits non-zero:
      cold_unroll=28); its time (the wrapper's, two product launches
      included) one call at a time and in a CUDA graph beside the plain
      version's and its bound;
+  5d3. its seeded entry (fs_scan_seeded: feature_sign's loop after K6)
+     from K6's handoff against the plain loop from the same handoff
+     (fs_scan_seeded_reference) on config 4's patches at N=2048 and 4096,
+     K6 and it sharing one pair of products, after K6's 28 steps (every
+     lane done on entry) and after 4 (under half done on entry, the loop
+     running): the lanes done on entry bit for bit and not run, the
+     objective gap and the KKT breach under the lasso cell's limits (2e-3
+     and 2e-9; 0.02 and 5e-5), done and overflow equal on >= 99% of lanes;
+     from _fs_init's state it must equal the empty-start entry bit for
+     bit; a seed wider than max_active raises; its time beside K6's, the
+     plain loop's and a bound from its own work (the seed read, the codes
+     written, and the running lanes' rows and solves);
   5e. K7 (fused selection) against its plain version at p=64, K=1024 on
      the 262,144 Gaussian lanes, f32 and bf16: picks equal on >= 99.9% of
      lanes; exact ties (atom 7 = atom 3, and atom 128 = atom 127 across two
@@ -106,9 +118,13 @@ Phases, in order; any failure raises and exits non-zero:
      SparseEncoder("bomp", T=8) on the same signals, 16 blocks = 16 K1 and
      16 product launches, equal to batch_omp;
      (d) SparseEncoder("lasso", lam=0.15) on config 4's 16,384 patches,
-     8 blocks of 2048 = 8 K6 launches and 16 product launches, per-lane
+     8 blocks of 2048 = 8 K6 launches, 8 seeded search launches and 16
+     product launches, per-lane
      objectives within rtol 1e-4, atol 1e-5 (tests/test_lasso.py's) of
-     cold_backend="xla", the plain path, on >= 99.9% of lanes and within rtol 1e-3 on all, and
+     the plain path (cold_backend="xla" with the route to the seeded
+     search kernel refused: _fs_unrolled_state and the segmented plain
+     loop, no K6 or K8 launch) on >= 99.9% of lanes and within rtol 1e-3
+     on all, and
      the KKT conditions of tests/test_lasso.py on every lane; (e)
      greedy._omp_impl(fused_select=True) on the 262,144 Batch-OMP signals
      (8 K7 launches), idx agreeing with fused_select=False on >= 99.9% of
@@ -132,10 +148,11 @@ Phases, in order; any failure raises and exits non-zero:
      path, patches/s and denoise seconds, the group encoder's patches/s,
      the bomp encoder (blocks of 16384) against one batch_omp call, and
      the lasso encoder's patches/s on the kernel path, on
-     cold_backend="xla" and on cold_unroll=0 (median of 3), with the host
-     syncs of one call; _omp_impl with fused_select True and False (f32
-     and bf16), the nn_omp and llc encoders' patches/s and the inpaint
-     seconds;
+     cold_backend="xla" and on cold_unroll=0 (those two seeds followed by
+     K8's seeded entry) and on the plain path (as in (d)) (median of 3),
+     with the host syncs of one call; _omp_impl with fused_select True
+     and False (f32 and bf16), the nn_omp and llc encoders' patches/s and
+     the inpaint seconds;
   8. the dictionary-learning paths, after the times above so that these
      read as before them: (i) KSVDLearner at config 2's full width (50,000
      8x8 patches of the 512^2 barbara and lena stand-ins, K=512, T=8, 20
@@ -186,15 +203,16 @@ Phases, in order; any failure raises and exits non-zero:
      by Gamma Gamma^T and X Gamma^T (float64, 1e-4 of their norms), the
      in-loop codes meet tests/test_lasso.py's KKT conditions and come within
      rtol 1e-3 of feature_sign's plain path (cold_backend="xla",
-     cold_unroll=0) per lane; times by parts (coding, statistics, atom
+     cold_unroll=0, the route to the seeded search kernel refused) per
+     lane; times by parts (coding, statistics, atom
      sweep, holdout) with CUDA events, and the coding's host syncs from
      the learned D (the solver's counter); K9 from the learned state
      against the float64 sweep (atom distances within 1e-5 largest, 1e-6
      median) and one sweep timed (CUDA events, median of 5 warm calls) at
      clusters of 4, 8 and 16 CTAs and at the one it picks, under 5 ms,
      beside the plain loop; (m) partial_fit on three minibatches
-     of a stream from a data D0: one K6, two product and one sweep
-     launches a minibatch, K6 on the first held to the plain version's own
+     of a stream from a data D0: one K6, two product, one seeded search
+     and one sweep launches a minibatch, K6 on the first held to the plain version's own
      float32/float64 agreement (less 0.1) as in 5d, fit over the same
      minibatches from the same state within 1% in holdout objective; (n)
      config 5 on digits-like data made here (digits_problem: 1,257 training
@@ -650,6 +668,29 @@ def fs_agree(torch, a, b):
     same = ((a[5] == b[5]) & (a[0] == b[0]).all(dim=1)
             & (a[1] == b[1]).all(dim=1))
     return float(same.float().mean()), same
+
+
+def plain_lasso(lt, fn):
+    """fn() on feature_sign's plain path: its route to the seeded search
+    kernel refused (solvers.lasso._fs_seeded_supported), so that the loop
+    after the seed runs as the segmented plain loop (_fs_segments), and
+    with cold_backend="xla" the cold start as _fs_unrolled_state.  Checks
+    that no feature-sign kernel (K6, either entry of K8) ran inside."""
+    import importlib
+
+    lasso = importlib.import_module("lyssandra_tpu_torch.solvers.lasso")
+    c0 = lt.launch_counts()
+    real = lasso._fs_seeded_supported
+    lasso._fs_seeded_supported = lambda *a, **kw: False
+    try:
+        out = fn()
+    finally:
+        lasso._fs_seeded_supported = real
+    c1 = lt.launch_counts()
+    ran = {k: c1[k] - c0[k] for k in ("fs_cold", "fs_scan", "fs_scan_seeded")
+           if c1[k] != c0[k]}
+    check(not ran, f"feature_sign's plain path launched {ran}")
+    return out
 
 
 def lasso_kkt(torch, D, X, G, lam):
@@ -1249,7 +1290,8 @@ def learning_paths(torch, lt, dev):
     inc_a = float(torch.linalg.norm(dA) / torch.linalg.norm(G @ G.T))
     inc_b = float(torch.linalg.norm(dB) / torch.linalg.norm(Xb.double() @ G.T))
     viol_act, viol_inact = lasso_kkt(torch, D, Xb, codes[0], LAM)
-    Gx = lt.feature_sign(D, Xb, LAM, cold_backend="xla", cold_unroll=0)
+    Gx = plain_lasso(lt, lambda: lt.feature_sign(
+        D, Xb, LAM, cold_backend="xla", cold_unroll=0))
     o_in = lasso_objectives(torch, D, Xb, codes[0], LAM)
     o_x = lasso_objectives(torch, D, Xb, Gx, LAM)
     obj_gap = float(((o_in - o_x).abs() / o_x.clamp_min(1e-12)).max())
@@ -1257,7 +1299,7 @@ def learning_paths(torch, lt, dev):
           f"{inc_a:.3g}, |dB - X G^T| / |X G^T| {inc_b:.3g}; in-loop codes: "
           f"KKT active {viol_act:.3g}, inactive max {viol_inact:.6f}; "
           f"objectives within {obj_gap:.3g} (relative) of feature_sign "
-          f"(cold_backend='xla', cold_unroll=0); mean nnz "
+          f"(cold_backend='xla', cold_unroll=0, the plain loop); mean nnz "
           f"{float((G.abs() > 1e-10).sum(dim=0).double().mean()):.3f}")
     check(inc_a <= 1e-4 and inc_b <= 1e-4,
           f"online statistics increments: A {inc_a}, B {inc_b}")
@@ -1347,10 +1389,11 @@ def learning_paths(torch, lt, dev):
     launches_m = lt.launch_counts()
     print(f"path (m) partial_fit launches: {launches_m}")
     check(launches_m["fs_cold"] == 3 and launches_m["gram"] == 6
+          and launches_m["fs_scan_seeded"] == 3
           and launches_m["online_sweep"] == 3
-          and sum(launches_m.values()) == 12,
-          f"partial_fit: one K6, two product and one sweep launch a "
-          f"minibatch expected, got {launches_m}")
+          and sum(launches_m.values()) == 15,
+          f"partial_fit: one K6, two product, one seeded search and one "
+          f"sweep launch a minibatch expected, got {launches_m}")
     got = fs_cold_fused(D0, mbs[0], lam=LAM, t_unroll=TUN)
     want = fs_cold_fused_reference(D0, mbs[0], lam=LAM, t_unroll=TUN)
     want64 = fs_cold_fused_reference(D0.double(), mbs[0].double(), lam=LAM,
@@ -2781,8 +2824,8 @@ def main():
         fs_cold_fused, fs_cold_fused_reference,
     )
     from lyssandra_tpu_torch.ops.cuda_fs_scan import (
-        fs_scan_fused, fs_scan_fused_reference,
-        lane_smem_bytes as scan_smem_bytes,
+        fs_scan_fused, fs_scan_fused_reference, fs_scan_seeded,
+        fs_scan_seeded_reference, lane_smem_bytes as scan_smem_bytes,
     )
     from lyssandra_tpu_torch.ops.cuda_gram import gram, gram_reference
     from lyssandra_tpu_torch.ops.cuda_group import (
@@ -2802,7 +2845,7 @@ def main():
     from lyssandra_tpu_torch.solvers.greedy import _omp_impl
     from lyssandra_tpu_torch.ops import cuda_fs
     from lyssandra_tpu_torch.solvers.lasso import (
-        _fs_scan_supported, host_syncs,
+        _fs_init, _fs_scan_supported, host_syncs,
     )
     from lyssandra_tpu_torch.ops.dictionaries import dct_dictionary_color
     from lyssandra_tpu_torch.utils.datasets import (
@@ -3434,6 +3477,91 @@ def main():
         print(f"fs_scan p={P4} K={K4} N={n}: {json.dumps(scan_t[n])}")
     del got, Gp, Xn
 
+    # --- 5d3. the seeded entry from K6's handoff against the plain loop
+    # from the same handoff: after K6's 28 steps, as feature_sign runs it
+    # (config 4's lanes are then all done on entry: the seed codes are
+    # copied), and after 4, which leaves most lanes to the loop
+    seeded_t, seeded_err = {}, 0.0
+    for tun, n in ((TUN, 2048), (TUN, 4096), (4, 2048), (4, 4096)):
+        Xn = Xc4[:, -n:].contiguous()
+        prods = cuda_fs.gram_inputs(Dc4, Xn)
+        seed = fs_cold_fused(Dc4, Xn, lam=LAM, t_unroll=tun, products=prods)
+        got = fs_scan_seeded(Dc4, Xn, seed, lam=LAM, products=prods)
+        want = fs_scan_seeded_reference(Dc4, Xn, seed, lam=LAM)
+        fo = lasso_objectives(torch, Dc4, Xn, got[0], LAM)
+        fw = lasso_objectives(torch, Dc4, Xn, want[0], LAM)
+        gap = (fo - fw) / fw.clamp_min(1e-12)
+        breach = lasso_kkt_lanes(torch, Dc4, Xn, got[0], LAM)[
+            got[1] & ~got[2]]
+        entry = seed[5]
+        on_entry = float(entry.float().mean())
+        done_eq = float((got[1] == want[1]).float().mean())
+        ovf_eq = float((got[2] == want[2]).float().mean())
+        what = f"fs_scan seeded from K6 at {tun} steps, config 4 N={n}"
+        print(f"{what}: done on entry {on_entry:.4f}; "
+              f"objective gap median {float(gap.median()):.3g}, max "
+              f"{float(gap.max()):.3g}; KKT breach median "
+              f"{float(breach.median()):.3g}, max {float(breach.max()):.3g};"
+              f" done equal on {done_eq:.4f}, overflow on {ovf_eq:.4f}; "
+              f"lane counts max {int(got[3].max())} (plain "
+              f"{int(want[3].max())})")
+        check(torch.equal(got[0][:, entry], want[0][:, entry])
+              and not bool(got[3][entry].any()),
+              f"{what}: the lanes done on entry differ, or ran")
+        if tun < TUN:
+            # the loop itself must run: most lanes, many iterations
+            check(on_entry < 0.5 and int(got[3].max()) > 0,
+                  f"{what}: {on_entry} of the lanes done on entry, lane "
+                  f"counts max {int(got[3].max())}")
+        check(float(gap.median()) <= 2e-9 and float(gap.max()) <= 2e-3,
+              f"{what}: objective gap {float(gap.median())}, "
+              f"{float(gap.max())}")
+        check(float(breach.median()) <= 5e-5 and float(breach.max()) <= 0.02,
+              f"{what}: KKT breach {float(breach.median())}, "
+              f"{float(breach.max())}")
+        check(done_eq >= 0.99 and ovf_eq >= 0.99,
+              f"{what}: done equal on {done_eq}, overflow on {ovf_eq}")
+        seeded_err = max(seeded_err, float(gap.max()))
+        # its own least work: it reads the seed (13 bytes a slot, done) and
+        # writes the dense codes, done, overflow and the counts; a lane not
+        # done on entry reads its alpha0 and gr rows, and, at its final
+        # support, takes 5d2's gradient, KKT test and one Cholesky solve;
+        # the G columns of the atoms such lanes use are read once
+        run = ~entry
+        c = (want[0][:, run] != 0).sum(dim=0).double()
+        atoms = int((want[0][:, run] != 0).any(dim=1).sum())
+        nrun = int(run.sum())
+        flops = float((2 * K4 * c + 2 * K4 + c ** 3 / 3 + 2 * c * c).sum())
+        bound = bound_ms(13 * n * tun + n + 4 * K4 * n + 6 * n
+                         + 8 * K4 * nrun + 4 * K4 * atoms, flops, PEAK_F32)
+        seeded_t[f"tun{tun}_n{n}"] = {
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "k6_ms": cuda_ms(torch, lambda: fs_cold_fused(
+                Dc4, Xn, lam=LAM, t_unroll=tun, products=prods)),
+            "ms": cuda_ms(torch, lambda: fs_scan_seeded(
+                Dc4, Xn, seed, lam=LAM, products=prods)),
+            "plain_ms": cuda_ms(torch, lambda: fs_scan_seeded_reference(
+                Dc4, Xn, seed, lam=LAM), reps=3),
+            "done_on_entry": on_entry,
+            "lane_counts_max": int(got[3].max())}
+        print(f"{what}: {json.dumps(seeded_t[f'tun{tun}_n{n}'])}")
+    Xn = Xc4[:, :1024].contiguous()
+    prods = cuda_fs.gram_inputs(Dc4, Xn)
+    empty = _fs_init(prods[0], LAM, 64)[:6]
+    got = fs_scan_seeded(Dc4, Xn, empty, lam=LAM, max_iter=60,
+                         products=prods)
+    want = fs_scan_fused(Dc4, Xn, lam=LAM)
+    check(all(torch.equal(a, b) for a, b in zip(got[:3], want[:3])),
+          "fs_scan seeded from the empty set differs from the empty-start "
+          "entry")
+    try:
+        fs_scan_seeded(Dc4, Xn, empty, lam=LAM, max_active=16)
+        check(False, "fs_scan seeded: a 64-slot seed at max_active=16 did "
+              "not raise")
+    except ValueError as e:
+        print(f"fs_scan seeded, a seed wider than max_active raises: {e}")
+    del got, want, seed, prods, empty, Xn
+
     # --- 5e. K7 against its plain version, then its envelope
     r7 = Xb.T.contiguous()               # the 262,144 Gaussian lanes (N, p)
 
@@ -3632,10 +3760,13 @@ def main():
     check(launches_d["gram"] == 2 * n_blocks,
           f"lasso encoder launched the product kernel "
           f"{launches_d['gram']} times, not {2 * n_blocks}")
+    check(launches_d["fs_scan_seeded"] == n_blocks,
+          f"lasso encoder launched the seeded search "
+          f"{launches_d['fs_scan_seeded']} times, not {n_blocks}")
     check(tuple(G4.shape) == (K4, N4) and bool(torch.isfinite(G4).all()),
           "lasso encoder codes: shape, finite")
-    G4x = lt.SparseEncoder("lasso", {"lam": LAM, "cold_backend": "xla"}
-                           ).encode(Xc4, Dc4)
+    G4x = plain_lasso(lt, lambda: lt.SparseEncoder(
+        "lasso", {"lam": LAM, "cold_backend": "xla"}).encode(Xc4, Dc4))
 
     # Both paths stop at points whose KKT residuals are within the done
     # tolerances (1e-4 on active stationarity); on the near-singular
@@ -3866,14 +3997,25 @@ def main():
     print(f"bomp encoder (blocks of {bomp_enc.block}) N={N}: "
           f"{benc_ms:.3f} ms = {N / benc_ms * 1e3:.1f} patches/s; one "
           f"batch_omp call {N / bomp_ms * 1e3:.1f} patches/s")
-    for what, params in (("kernel path", {}),
-                         ("cold_backend='xla'", {"cold_backend": "xla"}),
-                         ("cold_unroll=0", {"cold_unroll": 0})):
+    # K8's seeded entry runs the loop after every seed on the card; the
+    # plain path is cold_backend='xla' with that route refused
+    for what, params, plain in (
+            ("kernel path (K6, K8 seeded)", {}, False),
+            ("cold_backend='xla' (plain cold start, K8 seeded)",
+             {"cold_backend": "xla"}, False),
+            ("cold_unroll=0 (OMP seed, K8 seeded)", {"cold_unroll": 0},
+             False),
+            ("plain path (cold_backend='xla', the plain loop)",
+             {"cold_backend": "xla"}, True)):
         enc = lt.SparseEncoder("lasso", {"lam": LAM, **params})
-        syncs0 = host_syncs()
-        enc.encode(Xc4, Dc4)
-        syncs = host_syncs() - syncs0
-        ms = cuda_ms(torch, lambda: enc.encode(Xc4, Dc4), reps=3)
+
+        def timed():
+            syncs0 = host_syncs()
+            enc.encode(Xc4, Dc4)
+            syncs = host_syncs() - syncs0
+            return syncs, cuda_ms(torch, lambda: enc.encode(Xc4, Dc4), reps=3)
+
+        syncs, ms = plain_lasso(lt, timed) if plain else timed()
         print(f"lasso encoder {what} p={P4} K={K4} N={N4}: {ms:.3f} ms = "
               f"{N4 / ms * 1e3:.1f} patches/s; host syncs per call {syncs}")
     den_ms = cuda_ms(torch, lambda: denoiser(noisy))
@@ -4002,6 +4144,23 @@ def main():
          "bound_ms": scan_t[1024]["bound_ms"],
          "bound_by": scan_t[1024]["bound_by"], "library_ms": None,
          "by_lanes": scan_t},
+        # the seeded entry from K6's handoff (feature_sign's loop) on
+        # config 4's patches, its times after K6's 28 steps at N=2048;
+        # max_abs_err is the widest relative objective gap over the plain
+        # loop's codes from the same handoff (28 and 4 steps); bound_ms
+        # from its own work
+        {"name": "fs_scan_seeded", "route": "cuda",
+         "source": "lyssandra_tpu_torch/csrc/fs_scan.cu",
+         "replaces": "none: lyssandra_tpu/solvers/lasso.py's "
+                     "feature_sign loop after the cold start",
+         "launches": launches_d["fs_scan_seeded"]
+         + launches_m["fs_scan_seeded"],
+         "max_abs_err": seeded_err, "ms": seeded_t["tun28_n2048"]["ms"],
+         "plain_ms": seeded_t["tun28_n2048"]["plain_ms"],
+         "bound_ms": seeded_t["tun28_n2048"]["bound_ms"],
+         "bound_by": seeded_t["tun28_n2048"]["bound_by"],
+         "library_ms": None,
+         "by_lanes": seeded_t},
         # one sweep at config 4 from path (l)'s learned state; max_abs_err
         # is the widest atom distance to the float64 sweep
         {"name": "online_sweep", "route": "cuda",

@@ -62,6 +62,11 @@ _SIGNATURES = {
     # gamma, done, overflow, stream
     "lyssa_fs_scan": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P,
                       _P],
+    # A0, G, K, N, A, tun, max_iter, max_inner, max_cg, lam, thr, thr_done,
+    # idx, mask, theta, gact, gr, done_in, gamma, done, overflow, iters,
+    # stream
+    "lyssa_fs_scan_seeded": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # r, D, p, K, N, bf16, Dh, k_out, stream
     "lyssa_select_abs_argmax": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # r, rows, count, D, p, K, N, splits, tiles, k_out, best_out, stream

@@ -36,6 +36,19 @@
 // The kernel writes the dense codes (N, K) (zeroed by the caller), done and
 // overflow.
 //
+// The seeded entry (lyssa_fs_scan_seeded, the same kernel compiled with
+// SEEDED) runs feature_sign's loop after its cold start: _fs_loop from a
+// handoff state instead of the empty set, each lane to its own exit, so the
+// segments and their host exits collapse into one launch.  A lane reads its
+// Tun slots (atom, mask, theta, g) and done straight from csrc/fs_cold.cu's
+// outputs and builds the compact Gram of those slots; its first activation
+// is the violator of the handoff gradient row gr that fs_cold wrote, the
+// values _fs_loop's first step reads, so the first pick does not hang on
+// rounding.  Then up to max_iter outer iterations as above, counted from
+// the seed.  A lane done on entry writes its seed codes.  The entry also
+// writes each lane's count of outer iterations.  The empty-start entry
+// compiles as before: everything of the seed sits under `if constexpr`.
+//
 // What bounds it on an H100.  Latency, not bytes or flops: a lane's work is
 // a chain of dependent steps.  Each outer iteration reads the c Gram rows of
 // the support (c K floats) from L2, where G (4 MB at K=1024) stays resident,
@@ -160,15 +173,74 @@ __device__ void gradient_pass(const float* __restrict__ G, const float* a0s,
     bsign = bk < K ? sgn(bs) : 0.f;
 }
 
+// The largest |gr_k| of a stored gradient row, by the block's threads, with
+// the lowest such k, and sign(gr_k) there, on every thread: gradient_pass's
+// choice over values already computed (the handoff's gr is zero at the
+// active atoms, so they never win a positive maximum).
+__device__ void row_argmax(const float* __restrict__ gr, int K, float* red,
+                           int gt, float& best, int& bk, float& bsign) {
+    const int lane = gt & 31;
+    best = -1.f;
+    bk = K;
+    float bs = 0.f;
+    // k rises within a thread: a strict > keeps the first maximum
+    for (int k = gt; k < K; k += THREADS) {
+        const float g = gr[k];
+        if (fabsf(g) > best) {
+            best = fabsf(g);
+            bk = k;
+            bs = g;
+        }
+    }
+    warp_arg(best, bk, true);
+    bs = __shfl_sync(FULL, bs, bk & 31);
+    int* redi = reinterpret_cast<int*>(red);
+    const int wig = gt >> 5;
+    if (lane == 0) {
+        red[wig] = best;
+        redi[4 + wig] = bk;
+        red[8 + wig] = bs;
+    }
+    __syncthreads();
+    best = red[0];
+    bk = redi[4];
+    bs = red[8];
+#pragma unroll
+    for (int w = 1; w < WPL; ++w) {
+        const float v = red[w];
+        const int i = redi[4 + w];
+        if (v > best || (v == best && i < bk)) {
+            best = v;
+            bk = i;
+            bs = red[8 + w];
+        }
+    }
+    bsign = bk < K ? sgn(bs) : 0.f;
+}
+
+// The seeded entry's handoff state, row-major with N rows, and its count
+// out; the empty-start entry never reads it.
+struct Seed {
+    const int* idx;              // (N, tun) slot atoms
+    const unsigned char* mask;   // (N, tun) 0/1
+    const float* theta;          // (N, tun)
+    const float* gact;           // (N, tun) coefficients
+    const float* gr;             // (N, K) gradient, zero at active atoms
+    const unsigned char* done;   // (N,) 0/1
+    int tun;                     // slots of the seed, <= A
+    int* iters;                  // (N,) out: outer iterations run
+};
+
 // a block a lane; registers capped so that 8 blocks fit an SM (one wave
 // at 1,024 lanes)
+template <bool SEEDED>
 __global__ void __launch_bounds__(THREADS, 8)
 fs_scan_kernel(const float* __restrict__ A0, const float* __restrict__ G,
                int K, int A, int max_iter, int max_inner, int max_cg,
                float lam, float thr, float thr_done,
                float* __restrict__ gamma_out,
                unsigned char* __restrict__ done_out,
-               unsigned char* __restrict__ ovf_out) {
+               unsigned char* __restrict__ ovf_out, Seed seed) {
     extern __shared__ float smem[];
     const int gt = threadIdx.x;
     const int lane = gt & 31;
@@ -197,12 +269,22 @@ fs_scan_kernel(const float* __restrict__ A0, const float* __restrict__ G,
     }
     __syncthreads();
 
-    // gr at g = 0 is -2 alpha0: the done-on-entry test and the first
-    // violator
     float best, bsign;
     int bk;
-    gradient_pass(G, a0s, K, 0, lidx, lg, act, red, gt, best, bk, bsign);
-    bool done = best <= thr_done;
+    bool done;
+    if constexpr (SEEDED) {
+        // the handoff's flag; the first violator from its gradient row
+        best = -1.f;
+        bk = K;
+        bsign = 0.f;
+        done = seed.done[n] != 0;
+        if (!done) row_argmax(seed.gr + n * K, K, red, gt, best, bk, bsign);
+    } else {
+        // gr at g = 0 is -2 alpha0: the done-on-entry test and the first
+        // violator
+        gradient_pass(G, a0s, K, 0, lidx, lg, act, red, gt, best, bk, bsign);
+        done = best <= thr_done;
+    }
     bool ovf = false;
 
     // slots lane and lane + 32 of the leading warp; zero until filled
@@ -210,6 +292,39 @@ fs_scan_kernel(const float* __restrict__ A0, const float* __restrict__ G,
     float s_m[2] = {0.f, 0.f}, s_th[2] = {0.f, 0.f}, s_g[2] = {0.f, 0.f},
           s_a0[2] = {0.f, 0.f}, Hg[2] = {0.f, 0.f};
     int w = 0;  // slots in use: [0, w), filled in order
+    if constexpr (SEEDED) {
+        if (lead) {
+            // the seed's slots; a free one keeps its stale atom, as
+            // _fs_loop's slots do, and its masks drop it
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int a = lane + 32 * h;
+                if (a < seed.tun) {
+                    const size_t o = n * seed.tun + a;
+                    s_idx[h] = seed.idx[o];
+                    s_m[h] = seed.mask[o] ? 1.f : 0.f;
+                    s_th[h] = seed.theta[o];
+                    s_g[h] = seed.gact[o];
+                    s_a0[h] = a0s[s_idx[h]];
+                    sidx[a] = s_idx[h];
+                }
+            }
+            if (!done) {
+                // slots in use: up to the last active one; the compact
+                // Gram of those
+                const unsigned b0 = __ballot_sync(FULL, s_m[0] > 0.5f);
+                const unsigned b1 = __ballot_sync(FULL, s_m[1] > 0.5f);
+                w = b1 ? 64 - __clz(b1) : 32 - __clz(b0);
+                __syncwarp();
+                for (int e = lane; e < w * w; e += 32) {
+                    const int a = e / w;
+                    const int b = e - a * w;
+                    Mc[a * LD + b] = __ldg(G + (size_t)sidx[a] * K + sidx[b]);
+                }
+                __syncwarp();
+            }
+        }
+    }
 
     // o = M v over the slots in use (rows >= w: 0); the leading warp only
     auto matvec = [&](const float* v, float* o) {
@@ -240,7 +355,8 @@ fs_scan_kernel(const float* __restrict__ A0, const float* __restrict__ G,
         return __any_sync(FULL, v);
     };
 
-    for (int it = 0; it < max_iter && !done; ++it) {
+    int it = 0;  // outer iterations run
+    for (; it < max_iter && !done; ++it) {
         if (lead) {
             // --- activation of the violator the last pass found
             if (bk < K && best > thr) {
@@ -442,8 +558,28 @@ fs_scan_kernel(const float* __restrict__ A0, const float* __restrict__ G,
         if (lane == 0) {
             done_out[n] = done ? 1 : 0;
             ovf_out[n] = ovf ? 1 : 0;
+            if constexpr (SEEDED) seed.iters[n] = it;
         }
     }
+}
+
+template <bool SEEDED>
+int launch(const float* A0, const float* G, int K, int N, int A,
+           int max_iter, int max_inner, int max_cg, float lam, float thr,
+           float thr_done, float* gamma, unsigned char* done,
+           unsigned char* ovf, const Seed& seed, void* stream) {
+    if (A < 1 || A > MAXA || K < 1 || N < 0 || max_iter < 0 ||
+        max_inner < 0 || max_cg < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (N == 0) return static_cast<int>(cudaSuccess);
+    const size_t smem = lane_floats(K) * sizeof(float);
+    cudaError_t e = lyssa::opt_in_smem<fs_scan_kernel<SEEDED>>(smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fs_scan_kernel<SEEDED><<<(unsigned)N, THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        A0, G, K, A, max_iter, max_inner, max_cg, lam, thr, thr_done, gamma,
+        done, ovf, seed);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -464,16 +600,25 @@ extern "C" int lyssa_fs_scan(const float* A0, const float* G, int K, int N,
                              float lam, float thr, float thr_done,
                              float* gamma, unsigned char* done,
                              unsigned char* ovf, void* stream) {
-    if (A < 1 || A > MAXA || K < 1 || N < 0 || max_iter < 0 ||
-        max_inner < 0 || max_cg < 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-    if (N == 0) return static_cast<int>(cudaSuccess);
-    const size_t smem = lane_floats(K) * sizeof(float);
-    cudaError_t e = lyssa::opt_in_smem<fs_scan_kernel>(smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    fs_scan_kernel<<<(unsigned)N, THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-        A0, G, K, A, max_iter, max_inner, max_cg, lam, thr, thr_done, gamma,
-        done, ovf);
-    return static_cast<int>(cudaGetLastError());
+    return launch<false>(A0, G, K, N, A, max_iter, max_inner, max_cg, lam,
+                         thr, thr_done, gamma, done, ovf, Seed{}, stream);
+}
+
+// The seeded entry: as lyssa_fs_scan, from a handoff state of tun slots a
+// lane (0 <= tun <= A): idx (N, tun) int32, mask (N, tun) bytes 0/1, theta
+// and gact (N, tun) float32, gr (N, K) float32 (the gradient at the handoff
+// point, zero at the active atoms) and done_in (N,) bytes 0/1, as
+// csrc/fs_cold.cu writes them; max_iter outer iterations from there.
+// iters (N,) int32 receives each lane's count of outer iterations.
+extern "C" int lyssa_fs_scan_seeded(
+    const float* A0, const float* G, int K, int N, int A, int tun,
+    int max_iter, int max_inner, int max_cg, float lam, float thr,
+    float thr_done, const int* idx, const unsigned char* mask,
+    const float* theta, const float* gact, const float* gr,
+    const unsigned char* done_in, float* gamma, unsigned char* done,
+    unsigned char* ovf, int* iters, void* stream) {
+    if (tun < 0 || tun > A) return static_cast<int>(cudaErrorInvalidValue);
+    const Seed seed{idx, mask, theta, gact, gr, done_in, tun, iters};
+    return launch<true>(A0, G, K, N, A, max_iter, max_inner, max_cg, lam,
+                        thr, thr_done, gamma, done, ovf, seed, stream);
 }

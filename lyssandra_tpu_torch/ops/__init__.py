@@ -1,6 +1,6 @@
 from lyssandra_tpu_torch.ops._launch import launch_counts, reset_launch_counts
 from lyssandra_tpu_torch.ops.cuda_fs import fs_cold_fused
-from lyssandra_tpu_torch.ops.cuda_fs_scan import fs_scan_fused
+from lyssandra_tpu_torch.ops.cuda_fs_scan import fs_scan_fused, fs_scan_seeded
 from lyssandra_tpu_torch.ops.cuda_gram import gram
 from lyssandra_tpu_torch.ops.cuda_group import group_omp_fused
 from lyssandra_tpu_torch.ops.cuda_ksvd_sweep import ksvd_sweep_fused

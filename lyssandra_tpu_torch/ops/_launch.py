@@ -9,7 +9,7 @@ Every launch goes through ``launch``: it loads the library
 (``_build.load``), enters the tensor's GPU (``_device.kernel_device``),
 passes the current stream as the entry point's last argument, turns a
 non-zero return into an exception (``_build.check``) and adds one to the
-launch's counter, one of the registry's fourteen; ``ops.launch_counts()``
+launch's counter, one of the registry's fifteen; ``ops.launch_counts()``
 reads them.
 """
 
@@ -23,13 +23,13 @@ from lyssandra_tpu_torch._device import kernel_device
 # launches so far in this process, by counter: K1 and K2 (omp_fused, by
 # mode); K1-L and K2-L (omp_residual_fused: its init kernel by mode, one a
 # chunk of lanes, and its selection and step kernels, T a chunk each); K3,
-# K4/K5, K6, K8, K7, the product kernel, K9, the online sweep, and K10,
-# K-SVD's sweep
+# K4/K5, K6, K8 from the empty set and from a seed, K7, the product
+# kernel, K9, the online sweep, and K10, K-SVD's sweep
 _counts = dict.fromkeys((
     "omp_fused_t", "omp_fused_eps", "omp_residual_t", "omp_residual_eps",
     "omp_residual_select", "omp_residual_update", "fused_patches",
-    "group_omp_fused", "fs_cold", "fs_scan", "select_abs_argmax", "gram",
-    "online_sweep", "ksvd_sweep"), 0)
+    "group_omp_fused", "fs_cold", "fs_scan", "fs_scan_seeded",
+    "select_abs_argmax", "gram", "online_sweep", "ksvd_sweep"), 0)
 
 
 def count(counter: str) -> None:

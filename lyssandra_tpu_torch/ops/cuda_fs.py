@@ -9,7 +9,9 @@ on the GPU and runs its plain PyTorch version, ``fs_cold_fused_reference``
 tensors on the CPU.  Outputs: idx (N, Tun) int32, mask (N, Tun) bool,
 theta (N, Tun), gact (N, Tun), gr (N, K) — the gradient at the handoff
 point, zero at the active slots, as the feature-sign loop carries it — and
-done (N,) bool.
+done (N,) bool.  ``gram_inputs`` makes the kernel's inputs alpha0 and G,
+and the wrapper takes them as ``products``, so that the search kernel that
+takes the handoff (``ops/cuda_fs_scan.py``) reads the same ones.
 """
 
 from __future__ import annotations
@@ -66,14 +68,21 @@ def kkt_thresholds(lam: float) -> tuple[float, float]:
     return lam * (1.0 + 1e-4) + 1e-7, lam + 1e-12
 
 
+def gram_inputs(D: torch.Tensor, X: torch.Tensor):
+    """The Gram-form kernels' inputs for (D, X): (alpha0 = X^T D (N, K),
+    G = D^T D (K, K)), by the product kernel on the GPU."""
+    return gram(X, D), gram(D, D, symmetric=True)
+
+
 def fs_cold_fused(D: torch.Tensor, X: torch.Tensor, *, lam, t_unroll: int,
-                  n_refine: int = 2):
+                  n_refine: int = 2, products=None):
     """Fused feature-sign cold start over the columns of X (p, N) with
     dictionary D (p, K).  Returns (idx, mask, theta, gact, gr, done).
 
     On the GPU the kernel works in the Gram form: the product kernel
     (``cuda_gram.gram``) computes alpha0 = X^T D and G = D^T D first, and
-    the cold-start kernel reads only those."""
+    the cold-start kernel reads only those.  ``products``: that pair where
+    the caller made it (``gram_inputs(D, X)``)."""
     if X.device.type == "cpu" and D.device.type == "cpu":
         return fs_cold_fused_reference(D, X, lam=lam, t_unroll=t_unroll,
                                        n_refine=n_refine)
@@ -93,8 +102,7 @@ def fs_cold_fused(D: torch.Tensor, X: torch.Tensor, *, lam, t_unroll: int,
     done = torch.zeros((N,), dtype=torch.bool, device=dev)
     if N == 0:
         return idx, mask, theta, gact, gr, done
-    A0 = gram(X, D)                     # (N, K) alpha0 = X^T D
-    G = gram(D, D, symmetric=True)      # (K, K)
+    A0, G = gram_inputs(D, X) if products is None else products
     lam = float(lam)
     warps = min(_MAX_WARPS, _build.SMEM_PER_BLOCK // lane_smem_bytes(K, tun))
     _launch.launch(

@@ -11,6 +11,13 @@ replaces no Pallas kernel: the JAX package runs this loop as a
 plain loop runs a step while any lane of the batch needs it, so the codes
 agree up to rounding.  Outputs: Gamma (K, N), done (N,) bool, overflow
 (N,) bool and alpha0 = X^T D (N, K), which the caller's polish reuses.
+
+``fs_scan_seeded`` launches the same kernel's seeded entry: the loop from a
+seed's state, the cold start's handoff in ``solvers.lasso.feature_sign``,
+to every lane's own exit, where the plain loop runs in segments with a host
+read at every exit.  Its plain version, ``fs_scan_seeded_reference``, runs
+``_fs_loop`` from that state.  It returns each lane's count of outer
+iterations in place of alpha0.
 """
 
 from __future__ import annotations
@@ -19,9 +26,8 @@ import torch
 
 from lyssandra_tpu_torch import _build
 from lyssandra_tpu_torch.ops import _launch
-from lyssandra_tpu_torch.ops.cuda_fs import kkt_thresholds
-from lyssandra_tpu_torch.ops.cuda_gram import gram
-from lyssandra_tpu_torch.solvers.lasso import _fs_init, _fs_loop
+from lyssandra_tpu_torch.ops.cuda_fs import gram_inputs, kkt_thresholds
+from lyssandra_tpu_torch.solvers.lasso import _fs_init, _fs_loop, _pad_handoff
 
 MAX_ACTIVE = 64         # two slots a thread of one warp
 
@@ -91,8 +97,7 @@ def fs_scan_fused(D: torch.Tensor, X: torch.Tensor, *, lam,
     overflow = torch.zeros((N,), dtype=torch.bool, device=dev)
     if N == 0:
         return gamma.T, done, overflow, gamma
-    A0 = gram(X, D)                     # (N, K) alpha0 = X^T D
-    G = gram(D, D, symmetric=True)      # (K, K)
+    A0, G = gram_inputs(D, X)
     lam = float(lam)
     _launch.launch(
         "fs_scan", "lyssa_fs_scan", A0.data_ptr(), G.data_ptr(), K, N,
@@ -100,3 +105,79 @@ def fs_scan_fused(D: torch.Tensor, X: torch.Tensor, *, lam,
         *kkt_thresholds(lam), gamma.data_ptr(), done.data_ptr(),
         overflow.data_ptr(), like=X)
     return gamma.T, done, overflow, A0
+
+
+def fs_scan_seeded_reference(D: torch.Tensor, X: torch.Tensor, seed, *,
+                             lam, max_active: int = 64, max_iter: int = 100,
+                             max_inner: int = 6, max_cg: int = 32):
+    """Plain version of the seeded entry: ``_fs_loop`` from the seed's state
+    padded to ``max_active`` slots, one outer iteration a call so that each
+    lane's count is kept; the same steps as one call of ``max_iter``.
+    Returns (Gamma, done, overflow, iters)."""
+    A0 = X.T @ D
+    lam = float(lam)
+    opts = dict(max_active=max_active, max_inner=max_inner, max_cg=max_cg)
+    st = _pad_handoff(*seed, max_active=max_active)
+    iters = torch.zeros(A0.shape[0], dtype=torch.int32, device=A0.device)
+    for _ in range(max_iter):
+        running = ~st[5]
+        st, _, all_done = _fs_loop(D.T, X.T, A0, lam, st, max_iter=1, **opts)
+        if all_done:
+            break
+        iters += running
+    _, res, _ = _fs_loop(D.T, X.T, A0, lam, st, max_iter=0, **opts)
+    return res.Gamma, res.done, res.overflow, iters
+
+
+def fs_scan_seeded(D: torch.Tensor, X: torch.Tensor, seed, *, lam,
+                   max_active: int = 64, max_iter: int = 100,
+                   max_inner: int = 6, max_cg: int = 32, products=None):
+    """Feature-sign search over the columns of X (p, N) with dictionary D
+    (p, K) from ``seed`` = (idx, mask, theta, gact, gr, done): Tun <=
+    ``max_active`` slots a lane (N, Tun), the gradient there (N, K), zero
+    at the active slots, and the lanes already done (N,), as
+    ``cuda_fs.fs_cold_fused`` returns them.  Each lane runs to its own exit,
+    up to ``max_iter`` outer iterations from the seed.  Returns (Gamma (K,
+    N), done, overflow, iters (N,) int32: the outer iterations each lane
+    ran).  ``products``: (alpha0, G) where the caller made them
+    (``cuda_fs.gram_inputs``), else made here."""
+    if X.device.type == "cpu" and D.device.type == "cpu":
+        return fs_scan_seeded_reference(
+            D, X, seed, lam=lam, max_active=max_active, max_iter=max_iter,
+            max_inner=max_inner, max_cg=max_cg)
+    _launch.check_pair(
+        D, X, takes,
+        f"1 <= max_active <= {MAX_ACTIVE}, a lane state that fits shared "
+        "memory and counts >= 0", max_active=max_active, max_iter=max_iter,
+        max_inner=max_inner, max_cg=max_cg)
+    K = D.shape[1]
+    N = X.shape[1]
+    idx, mask, theta, gact, gr, done0 = (
+        t.to(dt).contiguous() for t, dt in zip(seed, (
+            torch.int32, torch.bool, torch.float32, torch.float32,
+            torch.float32, torch.bool)))
+    tun = idx.shape[1]
+    if not (tun <= max_active and mask.shape == theta.shape == gact.shape
+            == idx.shape == (N, tun) and gr.shape == (N, K)
+            and done0.shape == (N,)):
+        raise ValueError(
+            f"a seed of (N, Tun) slots, Tun <= max_active={max_active}, gr "
+            f"(N, K) and done (N,) expected for N={N}, K={K}; got "
+            f"{[tuple(t.shape) for t in seed]}")
+    dev = X.device
+    gamma = torch.zeros((N, K), dtype=torch.float32, device=dev)
+    done = torch.zeros((N,), dtype=torch.bool, device=dev)
+    overflow = torch.zeros((N,), dtype=torch.bool, device=dev)
+    iters = torch.zeros((N,), dtype=torch.int32, device=dev)
+    if N == 0:
+        return gamma.T, done, overflow, iters
+    A0, G = gram_inputs(D, X) if products is None else products
+    lam = float(lam)
+    _launch.launch(
+        "fs_scan_seeded", "lyssa_fs_scan_seeded", A0.data_ptr(),
+        G.data_ptr(), K, N, int(max_active), tun, int(max_iter),
+        int(max_inner), int(max_cg), lam, *kkt_thresholds(lam),
+        idx.data_ptr(), mask.data_ptr(), theta.data_ptr(), gact.data_ptr(),
+        gr.data_ptr(), done0.data_ptr(), gamma.data_ptr(), done.data_ptr(),
+        overflow.data_ptr(), iters.data_ptr(), like=X)
+    return gamma.T, done, overflow, iters

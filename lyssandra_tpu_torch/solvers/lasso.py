@@ -19,9 +19,11 @@ that reads a device value is one host sync (``host_syncs`` counts them).
 
 The first ``cold_unroll`` activations run as the unrolled growing-width
 cold start (``_fs_unrolled_state``); on a GPU the fused CUDA kernel
-``ops/cuda_fs.py`` computes the same state (``cold_backend``).
-``feature_sign_scan`` from the empty active set runs its whole loop on a
-GPU as one kernel, ``ops/cuda_fs_scan.py``, with no host read inside.
+``ops/cuda_fs.py`` computes the same state (``cold_backend``).  On a GPU
+the loop after it runs as one launch of the search kernel,
+``ops/cuda_fs_scan.py``, from that state, and ``feature_sign_scan`` from
+the empty active set runs its whole loop as another, with no host read
+inside either.
 """
 
 from __future__ import annotations
@@ -485,21 +487,6 @@ def _pad_handoff(idx, mask, theta, gact, gr, done, *, max_active):
             torch.zeros_like(done), idx.shape[1])
 
 
-def _fs_unrolled_state_fused(Dt, Xt, A0, lam, *, t_unroll, n_refine,
-                             max_active):
-    """``_fs_unrolled_state`` computed by the fused kernel
-    (``ops/cuda_fs.fs_cold_fused``; its plain version for CPU tensors).
-    The kernel computes A0 itself; the argument keeps the two cold starts'
-    common signature."""
-    from lyssandra_tpu_torch.ops.cuda_fs import fs_cold_fused
-
-    idx, mask, theta, gact, gr, done = fs_cold_fused(
-        Dt.T, Xt.T, lam=float(lam), t_unroll=int(t_unroll),
-        n_refine=int(n_refine))
-    return _pad_handoff(idx, mask, theta, gact, gr, done,
-                        max_active=max_active)
-
-
 def _fs_scan_supported(D, X, *, max_active: int, n_activate: int,
                        warm_start: int, cold_unroll: int) -> bool:
     """The search kernel (``ops/cuda_fs_scan.py``) takes
@@ -514,6 +501,32 @@ def _fs_scan_supported(D, X, *, max_active: int, n_activate: int,
         and n_activate == 1
         and cuda_fs_scan.takes(D, X, max_active)
     )
+
+
+def _fs_seeded_supported(D, X, *, max_active: int, n_activate: int,
+                         max_iter: int, max_inner: int, max_cg: int) -> bool:
+    """The search kernel's seeded entry (``ops/cuda_fs_scan.py``) runs
+    ``feature_sign``'s loop after its seed: one activation an iteration,
+    and a call its wrapper launches for (``cuda_fs_scan.takes``: the state
+    on a GPU, ``max_active`` slots it holds)."""
+    from lyssandra_tpu_torch.ops import cuda_fs_scan
+
+    return n_activate == 1 and cuda_fs_scan.takes(
+        D, X, max_active, max_iter=max_iter, max_inner=max_inner,
+        max_cg=max_cg)
+
+
+def _fs_read_gates(res: FeatureSignResult, iters):
+    """One host read after the search kernel: whether any lane is not done
+    or overflowed (the polish gate), whether any overflowed, and n_iter,
+    the seed's iterations (``res.n_iter``) plus the lanes' largest count
+    ``iters``.  Returns (res with that n_iter, bad, overflowed)."""
+    flags = _host(torch.stack([
+        (~res.done | res.overflow).any().to(torch.int32),
+        res.overflow.any().to(torch.int32),
+        torch.nn.functional.pad(iters, (0, 1)).max()]))
+    return (res._replace(n_iter=res.n_iter + int(flags[2])), bool(flags[0]),
+            bool(flags[1]))
 
 
 def _gather_lanes(state, sel, pad_done):
@@ -566,11 +579,17 @@ def feature_sign(
     - ``n_activate`` / ``max_cg`` / ``max_inner``: activations per outer
       iteration, CG iterations per solve, refinements per outer iteration.
 
-    The outer iterations run in segments of 16, 32, then 64 at most
-    (``max_iter`` in all).  The cold start, the segments and the polish
-    are the spans ``lyssa.fs.cold``, ``lyssa.fs.loop`` and
-    ``lyssa.fs.polish`` (``utils.profiling``); the overflow re-solve, a
-    call of its own, opens its own.
+    Up to ``max_iter`` outer iterations follow the seed.  On a GPU, at one
+    activation an iteration and where the search kernel takes the call
+    (``_fs_seeded_supported``), they run as one launch of its seeded entry
+    (``ops/cuda_fs_scan.fs_scan_seeded``), each lane to its own exit; K6
+    and it read one pair of products, and the polish gate's read brings
+    ``n_iter`` along.  Elsewhere they run as the plain loop in segments of
+    16, 32, then 64 at most, every exit a host read (``_fs_segments``).
+    The cold start, the loop and the polish are the spans
+    ``lyssa.fs.cold``, ``lyssa.fs.loop`` (attribute ``fused``: 1 where the
+    kernel ran the loop) and ``lyssa.fs.polish`` (``utils.profiling``);
+    the overflow re-solve, a call of its own, opens its own.
     """
     if max_iter < 1:
         raise ValueError(f"max_iter must be >= 1, got {max_iter}")
@@ -584,32 +603,39 @@ def feature_sign(
     X = _as_f32(X, device)
     lam = float(lam)
     Dt, Xt = D.T, X.T
-    A0 = X.T @ D
-    N = A0.shape[0]
     on_gpu = D.is_cuda
     if cold_unroll is None:
         cold_unroll = 28 if on_gpu else 0
     if cold_backend is None:
         cold_backend = "pallas" if on_gpu else "xla"
-    seg_plan = []
-    left, s = max_iter, min(16, max_iter)
-    while left > 0:
-        take = min(s, left)
-        seg_plan.append(take)
-        left -= take
-        s = min(2 * s, 64)
     A_run = 16 if (auto_capacity and max_active > 16) else max_active
-    if cold_unroll and cold_unroll > 0:
-        t_unroll = min(int(cold_unroll), A_run)
-        from lyssandra_tpu_torch.ops import cuda_fs
+    scan = _fs_seeded_supported(D, X, max_active=A_run,
+                                n_activate=n_activate, max_iter=max_iter,
+                                max_inner=max_inner, max_cg=max_cg)
+    t_unroll = (min(int(cold_unroll), A_run)
+                if cold_unroll and cold_unroll > 0 else 0)
+    from lyssandra_tpu_torch.ops import cuda_fs, cuda_fs_scan
 
-        fused = cold_backend == "pallas" and (
-            not on_gpu or cuda_fs.takes(D, X, t_unroll))
-        cold_start = (_fs_unrolled_state_fused if fused
-                      else _fs_unrolled_state)
+    k6 = t_unroll > 0 and cold_backend == "pallas" and (
+        not on_gpu or cuda_fs.takes(D, X, t_unroll))
+    # K6 and the search kernel read one alpha0 and G; the plain loop and
+    # the plain seeds read A0 = X^T D
+    products = cuda_fs.gram_inputs(D, X) if scan and k6 else None
+    A0 = None if products is not None else X.T @ D
+    if t_unroll:
         with span("lyssa.fs.cold"):
-            state = cold_start(Dt, Xt, A0, lam, t_unroll=t_unroll,
-                               n_refine=int(n_refine), max_active=A_run)
+            if k6:
+                cold = cuda_fs.fs_cold_fused(
+                    D, X, lam=lam, t_unroll=t_unroll, n_refine=int(n_refine),
+                    products=products)
+                # the search kernel reads the Tun-wide handoff as it is
+                # (its overflow is all false); the plain loop pads it
+                state = (cold + (None, t_unroll) if scan
+                         else _pad_handoff(*cold, max_active=A_run))
+            else:
+                state = _fs_unrolled_state(
+                    Dt, Xt, A0, lam, t_unroll=t_unroll,
+                    n_refine=int(n_refine), max_active=A_run)
     elif warm_start and warm_start > 0:
         if warm_seed == "omp":
             G0t = _fs_omp_seed_iterate(D, Xt, warm_start)
@@ -619,57 +645,32 @@ def feature_sign(
                                gate=(A_run == max_active))
     else:
         state = _fs_init(A0, lam, A_run)
-    seg = dict(max_active=A_run, max_inner=max_inner, max_cg=max_cg,
-               n_activate=n_activate)
     with span("lyssa.fs.loop") as attrs:
         s0 = None if attrs is None else _host.count
-        state, res, all_done = _fs_loop(Dt, Xt, A0, lam, state,
-                                        max_iter=seg_plan[0], **seg)
-        segments = 1
-        lanes = None            # narrow-batch lane ids (None = full width)
-        Xt_n, A0_n = Xt, A0
-        for seg_i in seg_plan[1:]:
-            if all_done:        # every later segment would run no iteration
-                break
-            if compact_stragglers:
-                bad = _host(~state[5])      # still running
-                nbad = int(bad.sum())
-                if nbad == 0:
-                    break
-                cur = state[0].shape[0]
-                if nbad <= cur // 2:
-                    cols = np.where(bad)[0]
-                    width = 256
-                    while width < nbad:
-                        width *= 2
-                    sel = np.zeros(width, np.int64)
-                    sel[:nbad] = cols
-                    selt = torch.from_numpy(sel).to(D.device)
-                    pad_done = torch.from_numpy(
-                        np.arange(width) >= nbad).to(D.device)
-                    state = _gather_lanes(state, selt, pad_done)
-                    Xt_n = Xt_n[selt]
-                    A0_n = A0_n[selt]
-                    lanes = cols if lanes is None else lanes[cols]
-            state, res_n, all_done = _fs_loop(Dt, Xt_n, A0_n, lam, state,
-                                              max_iter=seg_i, **seg)
-            segments += 1
-            if lanes is None:
-                res = res_n
-            else:
-                nb = len(lanes)
-                lt = torch.from_numpy(lanes).to(D.device)
-                Gamma = res.Gamma.clone()
-                Gamma[:, lt] = res_n.Gamma[:, :nb]
-                done = res.done.clone()
-                done[lt] = res_n.done[:nb]
-                overflow = res.overflow.clone()
-                overflow[lt] = res_n.overflow[:nb]
-                res = FeatureSignResult(Gamma, res_n.n_iter, done, overflow)
+        if scan:
+            Gamma, done, overflow, iters = cuda_fs_scan.fs_scan_seeded(
+                D, X, state[:6], lam=lam, max_active=A_run,
+                max_iter=max_iter, max_inner=max_inner, max_cg=max_cg,
+                products=products)
+            res = FeatureSignResult(Gamma, state[-1], done, overflow)
+            segments = 1
+        else:
+            res, segments = _fs_segments(
+                Dt, Xt, A0, lam, state, max_iter=max_iter,
+                compact_stragglers=compact_stragglers, max_active=A_run,
+                max_inner=max_inner, max_cg=max_cg, n_activate=n_activate)
         if attrs is not None:
             attrs["syncs"] = _host.count - s0
             attrs["segments"] = segments
-    if A_run < max_active and _host_bool(res.overflow.any()):
+            attrs["fused"] = int(scan)
+    # after the search kernel, one host read brings the polish gate, the
+    # overflow flag and n_iter; the plain loop's polish reads its own gate
+    bad = None
+    if scan:
+        res, bad, overflowed = _fs_read_gates(res, iters)
+    else:
+        overflowed = A_run < max_active and _host_bool(res.overflow.any())
+    if A_run < max_active and overflowed:
         # reduced-capacity overflow is this run's artifact: re-solve those
         # lanes exactly at the full capacity (a power-of-two width)
         cols = np.where(_host(res.overflow))[0]
@@ -677,7 +678,7 @@ def feature_sign(
         width = 256
         while width < nb:
             width *= 2
-        width = min(width, N)
+        width = min(width, X.shape[1])
         sel = np.zeros(width, np.int64)
         sel[:nb] = cols
         sub = feature_sign(
@@ -695,10 +696,75 @@ def feature_sign(
         overflow = res.overflow.clone()
         overflow[ct] = sub.overflow[:nb]
         res = FeatureSignResult(Gamma, res.n_iter, done, overflow)
+        bad = None          # the re-solved lanes: the polish reads again
     if polish:
         with span("lyssa.fs.polish"):
-            res = _fs_polish(D, X, lam, res)
+            # a gate read shut skips it; else _fs_polish reads its own
+            if bad is None or bad:
+                res = _fs_polish(D, X, lam, res)
     return res if full_result else res.Gamma
+
+
+def _fs_segments(Dt, Xt, A0, lam, state, *, max_iter, compact_stragglers,
+                 **seg):
+    """``feature_sign``'s plain loop from ``state``: ``_fs_loop`` in
+    segments of 16, 32, then 64 outer iterations at most (``max_iter`` in
+    all), every exit a host read; with ``compact_stragglers`` the lanes
+    still running after a segment are gathered into a narrow power-of-two
+    batch (at least 256) when they are at most half of it.  ``seg``:
+    ``_fs_loop``'s options.  Returns (result, segments run)."""
+    seg_plan = []
+    left, s = max_iter, min(16, max_iter)
+    while left > 0:
+        take = min(s, left)
+        seg_plan.append(take)
+        left -= take
+        s = min(2 * s, 64)
+    dev = A0.device
+    state, res, all_done = _fs_loop(Dt, Xt, A0, lam, state,
+                                    max_iter=seg_plan[0], **seg)
+    segments = 1
+    lanes = None            # narrow-batch lane ids (None = full width)
+    Xt_n, A0_n = Xt, A0
+    for seg_i in seg_plan[1:]:
+        if all_done:        # every later segment would run no iteration
+            break
+        if compact_stragglers:
+            bad = _host(~state[5])      # still running
+            nbad = int(bad.sum())
+            if nbad == 0:
+                break
+            cur = state[0].shape[0]
+            if nbad <= cur // 2:
+                cols = np.where(bad)[0]
+                width = 256
+                while width < nbad:
+                    width *= 2
+                sel = np.zeros(width, np.int64)
+                sel[:nbad] = cols
+                selt = torch.from_numpy(sel).to(dev)
+                pad_done = torch.from_numpy(
+                    np.arange(width) >= nbad).to(dev)
+                state = _gather_lanes(state, selt, pad_done)
+                Xt_n = Xt_n[selt]
+                A0_n = A0_n[selt]
+                lanes = cols if lanes is None else lanes[cols]
+        state, res_n, all_done = _fs_loop(Dt, Xt_n, A0_n, lam, state,
+                                          max_iter=seg_i, **seg)
+        segments += 1
+        if lanes is None:
+            res = res_n
+        else:
+            nb = len(lanes)
+            lt = torch.from_numpy(lanes).to(dev)
+            Gamma = res.Gamma.clone()
+            Gamma[:, lt] = res_n.Gamma[:, :nb]
+            done = res.done.clone()
+            done[lt] = res_n.done[:nb]
+            overflow = res.overflow.clone()
+            overflow[lt] = res_n.overflow[:nb]
+            res = FeatureSignResult(Gamma, res_n.n_iter, done, overflow)
+    return res, segments
 
 
 lasso = feature_sign

@@ -34,11 +34,15 @@ function):
   (the plain loop, about 8 launches an atom);
 - ``lyssa.fs.cold``: ``feature_sign``'s cold start (the fused kernel on a
   GPU);
-- ``lyssa.fs.loop``: its segmented loop after the start (the overflow
-  re-solve, a ``feature_sign`` call of its own, opens its own spans after
-  it); ``syncs``, the solvers' host reads inside it (the
+- ``lyssa.fs.loop``: its loop after the start (the overflow re-solve, a
+  ``feature_sign`` call of its own, opens its own spans after it);
+  ``syncs``, the solvers' host reads inside it (the
   ``solvers.lasso.host_syncs()`` delta), ``segments``, the segments run;
-- ``lyssa.fs.polish``: its FISTA-500 polish, gate included.
+  ``fused``, 1 where the loop ran as one launch of the search kernel's
+  seeded entry (``csrc/fs_scan.cu``, on a GPU), else 0 (the plain loop);
+- ``lyssa.fs.polish``: its FISTA-500 polish, with the plain loop's gate
+  read (after the search kernel, the one read of the gate, the overflow
+  flag and n_iter comes between the loop and polish spans).
 
 While a torch profiler runs (``profile_trace``, or any
 ``torch.profiler.profile``), each span is a ``record_function`` range of

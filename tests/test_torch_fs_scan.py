@@ -3,7 +3,11 @@
 decide before launch, ``feature_sign_scan`` on CPU tensors (the plain loop,
 its codes and host reads unchanged), the route's hand-off to the kernel's
 wrapper (through a stand-in: the kernel itself runs only on the card, in
-``tests/test_torch_fs_scan_card.py``) and the launch counter."""
+``tests/test_torch_fs_scan_card.py``) and the launch counter.  The same for
+the seeded entry, which runs ``feature_sign``'s loop after its cold start:
+its plain version against ``_fs_loop`` from the same handoff, the gate
+``_fs_seeded_supported``, the option sets that take it, its one host read
+and the ``fused`` attribute of the span ``lyssa.fs.loop``."""
 
 import importlib
 from types import SimpleNamespace
@@ -14,9 +18,12 @@ import torch
 
 import lyssandra_tpu_torch as lt
 from lyssandra_tpu_torch.ops import _launch, cuda_fs_scan
+from lyssandra_tpu_torch.ops.cuda_fs import fs_cold_fused_reference
 from lyssandra_tpu_torch.ops.cuda_fs_scan import (
     fs_scan_fused,
     fs_scan_fused_reference,
+    fs_scan_seeded,
+    fs_scan_seeded_reference,
     kernel_supports,
     lane_smem_bytes,
 )
@@ -24,8 +31,11 @@ from lyssandra_tpu_torch.solvers.lasso import (
     _fs_init,
     _fs_loop,
     _fs_scan_supported,
+    _fs_seeded_supported,
+    _pad_handoff,
     host_syncs,
 )
+from lyssandra_tpu_torch.utils import clear_spans, spans
 from tests.conftest import make_problem
 
 tl = importlib.import_module("lyssandra_tpu_torch.solvers.lasso")
@@ -174,3 +184,213 @@ def test_launch_counts_list_and_reset_fs_scan():
     finally:
         lt.reset_launch_counts()
     assert lt.launch_counts()["fs_scan"] == 0
+
+
+# feature_sign's call at the lasso cell's settings (max_active 64, max_iter
+# 100, max_inner 6, max_cg 32, one activation an iteration)
+SEEDED_CALL = dict(max_active=64, n_activate=1, max_iter=100, max_inner=6,
+                   max_cg=32)
+TUN = 3
+
+
+@pytest.mark.parametrize("slots", [64, 16], ids=["full", "auto-capacity"])
+def test_the_seeded_entry_takes_feature_signs_call(slots):
+    assert _fs_seeded_supported(_on_card(192, 1024), _on_card(192, 2048),
+                                **dict(SEEDED_CALL, max_active=slots))
+
+
+@pytest.mark.parametrize("change", [
+    {"n_activate": 2}, {"max_active": 65}, {"max_cg": -1},
+    {"K": K_CAP + 1}, {"cpu": True}, {"dtype": torch.float64},
+], ids=["n_activate-2", "max_active-65", "max_cg-negative", "K-over-the-cap",
+        "cpu-tensors", "float64"])
+def test_the_seeded_entry_refuses_outside_its_envelope(change):
+    change = dict(change)
+    K = change.pop("K", 1024)
+    dtype = change.pop("dtype", torch.float32)
+    if change.pop("cpu", False):
+        D, X = torch.ones(192, K), torch.ones(192, 8)
+    else:
+        D, X = _on_card(192, K, dtype), _on_card(192, 8, dtype)
+    assert not _fs_seeded_supported(D, X, **dict(SEEDED_CALL, **change))
+
+
+@pytest.mark.parametrize("kw", [{}, {"max_iter": 2}, {"max_active": 4}],
+                         ids=["done", "cut", "overflow"])
+def test_seeded_plain_version_is_the_loop_from_the_handoff(rng, kw):
+    # the wrapper on CPU tensors from the cold start's handoff (its plain
+    # version) against one _fs_loop call from the same state, padded
+    D, X = _problem(rng)
+    A, n_it = kw.get("max_active", 64), kw.get("max_iter", 100)
+    seed = fs_cold_fused_reference(D, X, lam=LAM, t_unroll=TUN)
+    lt.reset_launch_counts()
+    G, done, ovf, iters = fs_scan_seeded(D, X, seed, lam=LAM, max_active=A,
+                                         max_iter=n_it)
+    A0 = X.T @ D
+    _, res, _ = _fs_loop(D.T, X.T, A0, LAM,
+                         _pad_handoff(*seed, max_active=A), max_active=A,
+                         max_iter=n_it, max_inner=6)
+    assert torch.equal(G, res.Gamma) and torch.equal(done, res.done)
+    assert torch.equal(ovf, res.overflow)
+    # each lane's count: none for a lane done on entry, the largest is the
+    # loop's own count after the seed's TUN steps
+    assert iters.dtype == torch.int32 and int(iters.max()) <= n_it
+    assert not bool(iters[seed[5]].any()) and bool(seed[5].any())
+    assert TUN + int(iters.max()) == res.n_iter
+    assert bool(ovf.any()) == ("max_active" in kw)
+    assert bool(done.all()) == ("max_iter" not in kw)
+    assert lt.launch_counts()["fs_scan_seeded"] == 0
+
+
+def test_the_seeded_wrapper_refuses_a_device_without_a_kernel():
+    D = torch.ones(16, 24, device="meta")
+    X = torch.ones(16, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fs_scan_seeded(D, X, (None,) * 6, lam=LAM)
+
+
+def _auto_problem():
+    # p = 32, K = 48, lam 0.2: 15 of the 40 lanes want more than 16 atoms,
+    # so auto_capacity's 16-slot run overflows and re-solves them
+    rng = np.random.default_rng(1)
+    D = rng.standard_normal((32, 48)).astype(np.float32)
+    X = rng.standard_normal((32, 40)).astype(np.float32)
+    return (torch.from_numpy(D / np.linalg.norm(D, axis=0)),
+            torch.from_numpy(X / np.linalg.norm(X, axis=0)))
+
+
+# option sets of feature_sign, each with the seeded calls it makes: (the
+# seed's slots, the slots it runs at) a call
+ROUTED = {
+    "k6-handoff": ({"cold_unroll": TUN, "cold_backend": "pallas"},
+                   [(TUN, 64)]),
+    "k6-cut": ({"cold_unroll": TUN, "cold_backend": "pallas",
+                "max_iter": 2}, [(TUN, 64)]),
+    "k6-stragglers": ({"cold_unroll": TUN, "cold_backend": "pallas",
+                       "compact_stragglers": True}, [(TUN, 64)]),
+    "k6-overflow": ({"cold_unroll": TUN, "cold_backend": "pallas",
+                     "max_active": 4}, [(TUN, 4)]),
+    "plain-cold-start": ({"cold_unroll": TUN, "cold_backend": "xla"},
+                         [(64, 64)]),
+    "warm-omp": ({"warm_start": 4}, [(64, 64)]),
+    "empty-start": ({"warm_start": 0}, [(64, 64)]),
+    "no-polish": ({"cold_unroll": TUN, "cold_backend": "pallas",
+                   "polish": False}, [(TUN, 64)]),
+    "auto-capacity": ({"warm_start": 0, "auto_capacity": True},
+                      [(16, 16), (64, 64)]),
+}
+
+
+def _routed(monkeypatch):
+    """Open the seeded entry's gate on CPU tensors; the wrapper's stand-in
+    records each call's (seed slots, max_active) and runs the plain
+    version, whose own host reads it keeps apart."""
+    calls, own = [], []
+
+    def stand_in(D_, X_, seed, **kw):
+        calls.append((seed[0].shape[1], kw["max_active"]))
+        kw.pop("products")              # the plain version makes its own
+        s0 = host_syncs()
+        out = fs_scan_seeded_reference(D_, X_, seed, **kw)
+        own.append(host_syncs() - s0)
+        return out
+
+    monkeypatch.setattr(tl, "_fs_seeded_supported", lambda *a, **k: True)
+    monkeypatch.setattr(cuda_fs_scan, "fs_scan_seeded", stand_in)
+    return calls, own
+
+
+@pytest.mark.parametrize("case", sorted(ROUTED))
+def test_feature_sign_routes_its_loop_to_the_seeded_entry(rng, monkeypatch,
+                                                          case):
+    # codes, n_iter, done and overflow are the plain loop's, bit for bit
+    opts, want_calls = ROUTED[case]
+    D, X = _auto_problem() if case == "auto-capacity" else _problem(rng)
+    lam = 0.2 if case == "auto-capacity" else LAM
+    want = tl.feature_sign(D, X, lam, full_result=True, **opts)
+    calls, _ = _routed(monkeypatch)
+    got = tl.feature_sign(D, X, lam, full_result=True, **opts)
+    assert calls == want_calls
+    assert torch.equal(got.Gamma, want.Gamma)
+    assert got.n_iter == want.n_iter
+    assert torch.equal(got.done, want.done)
+    assert torch.equal(got.overflow, want.overflow)
+
+
+@pytest.mark.parametrize("opts", [{"n_activate": 2}, {}],
+                         ids=["n_activate-2", "cpu-tensors"])
+def test_feature_sign_keeps_the_plain_loop(rng, monkeypatch, opts):
+    # CPU tensors, or two activations an iteration: the segmented loop
+    D, X = _problem(rng)
+    seeded, segmented = [], []
+    monkeypatch.setattr(cuda_fs_scan, "fs_scan_seeded",
+                        lambda *a, **k: seeded.append(1))
+    run = tl._fs_segments
+
+    def counted(*a, **kw):
+        segmented.append(1)
+        return run(*a, **kw)
+
+    monkeypatch.setattr(tl, "_fs_segments", counted)
+    if opts:
+        # the gate as on a card: only n_activate closes it
+        real = tl._fs_seeded_supported
+        monkeypatch.setattr(
+            tl, "_fs_seeded_supported",
+            lambda D_, X_, **kw: real(_on_card(*D_.shape), _on_card(
+                *X_.shape), **kw))
+    tl.feature_sign(D, X, LAM, cold_unroll=TUN, cold_backend="pallas",
+                    **opts)
+    assert seeded == [] and segmented == [1]
+
+
+@pytest.mark.parametrize("polish", [True, False], ids=["polish", "no-polish"])
+def test_the_seeded_route_reads_the_host_once(rng, monkeypatch, polish):
+    # after K6's handoff the route's only read is the polish gate (or, with
+    # no polish, n_iter's); the plain loop reads at every exit
+    D, X = _problem(rng)
+    opts = dict(cold_unroll=TUN, cold_backend="pallas", polish=polish)
+    s0 = host_syncs()
+    tl.feature_sign(D, X, LAM, **opts)
+    plain = host_syncs() - s0
+    _, own = _routed(monkeypatch)
+    s0 = host_syncs()
+    tl.feature_sign(D, X, LAM, **opts)
+    assert host_syncs() - s0 - sum(own) == 1
+    assert plain > 5
+
+
+@pytest.mark.parametrize("routed", [False, True], ids=["cpu", "seeded"])
+def test_loop_span_says_whether_the_kernel_ran_it(rng, monkeypatch, routed):
+    D, X = _problem(rng)
+    opts = dict(cold_unroll=TUN, cold_backend="pallas")
+    if routed:
+        seed = fs_cold_fused_reference(D, X, lam=LAM, t_unroll=TUN)
+        out = fs_scan_seeded_reference(D, X, seed, lam=LAM)
+        monkeypatch.setattr(tl, "_fs_seeded_supported",
+                            lambda *a, **k: True)
+        monkeypatch.setattr(cuda_fs_scan, "fs_scan_seeded",
+                            lambda *a, **k: out)
+    clear_spans()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            tl.feature_sign(D, X, LAM, **opts)
+        loops = [r for r in spans() if r.name == "lyssa.fs.loop"]
+    finally:
+        clear_spans()
+    (loop,) = loops
+    assert loop.attrs["fused"] == int(routed)
+    assert loop.attrs["segments"] >= 1
+    assert (loop.attrs["syncs"] == 0) == routed
+
+
+def test_launch_counts_list_and_reset_fs_scan_seeded():
+    lt.reset_launch_counts()
+    _launch.count("fs_scan_seeded")
+    try:
+        assert lt.launch_counts()["fs_scan_seeded"] == 1
+        assert lt.launch_counts()["fs_scan"] == 0
+    finally:
+        lt.reset_launch_counts()
+    assert lt.launch_counts()["fs_scan_seeded"] == 0

@@ -133,7 +133,8 @@ def test_unrolled_state_matches_jax(coherent, lam):
 @pytest.mark.parametrize("case", ["coherent", "unaligned"])
 def test_fs_cold_fused_matches_pallas_interpret(request, case):
     """fs_cold_fused on CPU tensors (its plain version) against the Pallas
-    kernel in interpret mode, through both handoff functions."""
+    kernel in interpret mode, through both packages' handoff to the plain
+    loop."""
     D, X = request.getfixturevalue(case)
     lam, tun, A, block = ((0.15, 6, 16, 32) if case == "coherent"
                           else (0.1, 4, 12, 16))
@@ -141,8 +142,9 @@ def test_fs_cold_fused_matches_pallas_interpret(request, case):
         _j(D).T, _j(X).T, jnp.matmul(_j(X).T, _j(D), precision=_HI), lam,
         t_unroll=tun, n_refine=2, max_active=A, block=block)
     Dt, Xt = _t(D), _t(X)
-    got = tl._fs_unrolled_state_fused(Dt.T, Xt.T, Xt.T @ Dt, lam,
-                                      t_unroll=tun, n_refine=2, max_active=A)
+    # feature_sign's handoff to the plain loop: the state padded to A slots
+    got = tl._pad_handoff(*fs_cold_fused(Dt, Xt, lam=lam, t_unroll=tun),
+                          max_active=A)
     _assert_state_equal(got, want)
     idx, mask, theta, gact, gr, done = fs_cold_fused(Dt, Xt, lam=lam,
                                                      t_unroll=tun)

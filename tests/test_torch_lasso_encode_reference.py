@@ -195,7 +195,9 @@ def test_loop_and_polish_spans_carry_their_counts(problem, max_iter,
     syncs = host_syncs() - s0
     (_, lp), = named(recs, "lyssa.fs.loop")
     (_, pol), = named(recs, "lyssa.fs.polish")
-    assert lp.attrs == {"syncs": sum(segs), "segments": len(segs)}
+    # the plain loop on the CPU: fused 0
+    assert lp.attrs == {"syncs": sum(segs), "segments": len(segs),
+                        "fused": 0}
     assert pol.attrs == {}
     assert len(fistas) == int(lanes > 0)
     # the polish's gate is one read; the warm start's reads are outside

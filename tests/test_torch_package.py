@@ -227,16 +227,17 @@ def test_launch_counters_stay_zero_on_cpu(rng):
         "omp_fused_t": 0, "omp_fused_eps": 0, "omp_residual_t": 0,
         "omp_residual_eps": 0, "omp_residual_select": 0,
         "omp_residual_update": 0, "fused_patches": 0, "group_omp_fused": 0,
-        "fs_cold": 0, "fs_scan": 0, "select_abs_argmax": 0, "gram": 0,
-        "online_sweep": 0, "ksvd_sweep": 0}
+        "fs_cold": 0, "fs_scan": 0, "fs_scan_seeded": 0,
+        "select_abs_argmax": 0, "gram": 0, "online_sweep": 0,
+        "ksvd_sweep": 0}
 
 
 # the counters portbench sums and chip_smoke.py reads by name
 LAUNCH_KEYS = {
     "omp_fused_t", "omp_fused_eps", "omp_residual_t", "omp_residual_eps",
     "omp_residual_select", "omp_residual_update", "fused_patches",
-    "group_omp_fused", "fs_cold", "fs_scan", "select_abs_argmax", "gram",
-    "online_sweep", "ksvd_sweep"}
+    "group_omp_fused", "fs_cold", "fs_scan", "fs_scan_seeded",
+    "select_abs_argmax", "gram", "online_sweep", "ksvd_sweep"}
 
 
 @pytest.mark.parametrize("case", ["plain-versions", "reset", "keys"])
@@ -255,6 +256,9 @@ def test_launch_registry(rng, case):
         lt.ops.group_omp_fused(D, X, np.repeat(np.arange(10), 4), 2)
         lt.ops.fs_cold_fused(D, X, lam=0.2, t_unroll=3)
         lt.ops.fs_scan_fused(D, X, lam=0.2, max_iter=4)
+        lt.ops.fs_scan_seeded(
+            D, X, lt.ops.fs_cold_fused(D, X, lam=0.2, t_unroll=3), lam=0.2,
+            max_iter=4)
         lt.ops.fused_patch_pipeline_p1(torch.randn(12, 12), 4)
         lt.ops.online_sweep_fused(D, torch.eye(40), torch.randn(16, 40), 1)
         lt.ops.ksvd_sweep_fused(X, D[:, :6], torch.randn(6, 8), 1)

@@ -3,7 +3,8 @@ plain path.  Each case runs on CPU tensors and on CPU tensors that pose as
 CUDA ones (``Tensor.is_cuda`` patched true), at a shape inside and one
 outside the kernel's envelope.  The wrappers are replaced by spies that
 run their plain versions, so no kernel launches; the plain paths by spies
-that run the originals."""
+that run the originals.  A route that takes two steps, feature_sign's
+cold start and then its loop, names both, joined by "+"."""
 
 import importlib
 
@@ -33,10 +34,13 @@ ROUTES = {
     ("group_omp", "inside"): ("plain", "group"),
     ("group_omp", "outside"): ("plain", "plain"),
     ("group_omp", "eps"): ("plain", "plain"),
-    ("feature_sign_pallas", "inside"): ("fs_cold", "fs_cold"),
-    ("feature_sign_pallas", "outside"): ("fs_cold", "plain"),
-    ("feature_sign_xla", "inside"): ("plain", "plain"),
-    ("feature_sign_xla", "outside"): ("plain", "plain"),
+    ("feature_sign_pallas", "inside"): ("fs_cold+loop",
+                                        "fs_cold+fs_scan_seeded"),
+    ("feature_sign_pallas", "outside"): ("fs_cold+loop",
+                                         "plain+fs_scan_seeded"),
+    ("feature_sign_pallas", "n_activate-2"): ("fs_cold+loop", "fs_cold+loop"),
+    ("feature_sign_xla", "inside"): ("plain+loop", "plain+fs_scan_seeded"),
+    ("feature_sign_xla", "outside"): ("plain+loop", "plain+fs_scan_seeded"),
     ("feature_sign_scan", "inside"): ("plain", "fs_scan"),
     ("feature_sign_scan", "outside"): ("plain", "plain"),
     ("feature_sign_scan", "n_activate-2"): ("plain", "plain"),
@@ -55,19 +59,25 @@ def _spy(monkeypatch, module, name, tag, calls, fn=None):
 
     def spy(*args, **kwargs):
         calls.append(tag)
+        if fn is not None:
+            # a wrapper's products: its plain version makes its own
+            kwargs.pop("products", None)
         return run(*args, **kwargs)
 
     monkeypatch.setattr(module, name, spy)
 
 
-# the plain path's marker, by entry
+# the plain path's markers, by entry: (module, function, tag)
 PLAIN = {
-    "batch_omp": ((greedy, "_omp_impl"), (greedy, "_batch_omp_impl")),
-    "omp_fused_select": ((greedy, "_argmax_abs"),),
-    "group_omp": ((greedy, "_group_omp_impl"),),
-    "feature_sign_pallas": ((tl, "_fs_unrolled_state"),),
-    "feature_sign_xla": ((tl, "_fs_unrolled_state"),),
-    "feature_sign_scan": ((tl, "_fs_loop"),),
+    "batch_omp": ((greedy, "_omp_impl", "plain"),
+                  (greedy, "_batch_omp_impl", "plain")),
+    "omp_fused_select": ((greedy, "_argmax_abs", "plain"),),
+    "group_omp": ((greedy, "_group_omp_impl", "plain"),),
+    "feature_sign_pallas": ((tl, "_fs_unrolled_state", "plain"),
+                            (tl, "_fs_segments", "loop")),
+    "feature_sign_xla": ((tl, "_fs_unrolled_state", "plain"),
+                         (tl, "_fs_segments", "loop")),
+    "feature_sign_scan": ((tl, "_fs_loop", "plain"),),
 }
 
 
@@ -85,7 +95,9 @@ def _spies(monkeypatch, entry):
          cuda_fs.fs_cold_fused_reference),
         (cuda_fs_scan, "fs_scan_fused", "fs_scan",
          cuda_fs_scan.fs_scan_fused_reference),
-    ) + tuple((m, n, "plain", None) for m, n in PLAIN[entry]):
+        (cuda_fs_scan, "fs_scan_seeded", "fs_scan_seeded",
+         cuda_fs_scan.fs_scan_seeded_reference),
+    ) + tuple((m, n, tag, None) for m, n, tag in PLAIN[entry]):
         _spy(monkeypatch, module, name, tag, calls, fn)
     return calls
 
@@ -112,7 +124,8 @@ def _call(entry, shape, rng):
         backend = entry.rsplit("_", 1)[1]
         unroll = 33 if shape == "outside" else 3   # the kernel's <= 32
         tl.feature_sign(_unit(rng, 12, 24), torch.randn(12, 6), LAM,
-                        max_iter=4, cold_unroll=unroll, cold_backend=backend)
+                        max_iter=4, cold_unroll=unroll, cold_backend=backend,
+                        n_activate=2 if shape == "n_activate-2" else 1)
     else:
         active = 65 if shape == "outside" else 64  # the kernel's <= 64
         tl.feature_sign_scan(_unit(rng, 12, 24), torch.randn(12, 6), LAM,
@@ -130,4 +143,4 @@ def test_route_table(monkeypatch, rng, entry, shape, posed):
                             property(lambda self: True))
     _call(entry, shape, rng)
     want = ROUTES[entry, shape][posed]
-    assert calls and set(calls) == {want}, calls
+    assert calls and set(calls) == set(want.split("+")), calls
